@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's read stream once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU: the read
+stream, and the K1 bench path (bench, S1 variant sweep, S2 prep ablation).
 
 Run from the repository root, with no arguments:
 
@@ -21,13 +22,25 @@ code is non-zero and no result line is printed:
    equals the card's; the pileup accumulators count what was retained;
 6. timings: stream wall time and reads/s, one batch's time, the device's
    busy share and time by kernel (torch.profiler), and each kernel's time
-   beside its twin's at the path's shapes.
+   beside its twin's at the path's shapes;
+7. bench kernels: every S1 variant at 131,072 x 128 x 161 and S2 at
+   65,536 x 128 x 160 against their plain PyTorch versions on the card, bit
+   for bit (S2's raw key included), and 256 pairs each against the NumPy
+   oracle; each S1 variant's resident blocks per SM;
+8. bench path: `rambl_tpu_torch.bench`, `scripts.bench_sw_variants` and
+   `scripts.ablate_prep` once each at their documented sizes, the launch
+   counts set to 0 before each and read after it; each kernel of the path
+   must have launched.
 
-The second-to-last lines are the kernel table as JSON and the card's name and
-power limit from nvidia-smi; the last line is the result as JSON.
+The second-to-last lines are the kernel table as JSON (time, launches on the
+main path, error against the plain version, and the bound: the larger of the
+bytes over 3.35 TB/s and the integer operations over 132 SMs x 64 INT32
+lanes x the card's max SM clock) and the card's name and power limit from
+nvidia-smi; the last line is the result as JSON.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -35,22 +48,69 @@ import time
 import numpy as np
 import torch
 
-from rambl_tpu_torch.device import require_cuda
+from rambl_tpu_torch.device import card_line, require_cuda
 
 N_READS = 1_000_000
 SEED = 7
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
+INT32_LANES_PER_SM = 64
+# integer operations per DP cell: E, F, diagonal and H take 3 each (the
+# Pallas cost estimate's 12); K2 adds ~6 for its direction code
+OPS_PER_CELL, OPS_PER_CELL_DIRS = 12, 18
+OPS_PER_TRACE_STEP = 10
 
 
 def say(*parts):
     print(*parts, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+def ptxas_report(lines):
+    """(kernel, registers, spills) per kernel of a `-Xptxas -v` log, the
+    kernel named with its template arguments."""
+    name = spill = None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '\S*?\d+(sw_[a-z_]+_kernel)"
+                      r"(I(?:L[ib]\d+E)+E)?", ln)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) or ""))
+            name, spill = m.group(1) + (f"<{args}>" if args else ""), None
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            yield name, ln.split(":", 1)[-1].strip(), spill
+            name = None
+
+
+def int32_ops_per_s(dev) -> float:
+    """Peak INT32 rate outside the tensor cores: SMs x 64 lanes x the max
+    SM clock that nvidia-smi reports."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", f"--id={dev.index or 0}"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(mhz.strip().splitlines()[0]) * 1e6
+
+
+def bound(ops: float, nbytes: float, peak_ops: float):
+    """(least ms the card could take, what bounds it)."""
+    t_ops = ops / peak_ops * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def blocks_per_sm(variant, L: int, regs: int, props) -> int:
+    """Resident blocks per SM of an S1 variant: the fewest that its shared
+    memory (plus the 1 KB the runtime reserves a block), its threads and its
+    registers (from the ptxas log, allocated per warp in units of 256)
+    leave room for."""
+    by_smem = props.shared_memory_per_multiprocessor // (
+        variant.smem_bytes(L) + 1024)
+    by_threads = props.max_threads_per_multi_processor // variant.threads
+    regs_per_warp = -(-regs * 32 // 256) * 256
+    by_regs = props.regs_per_multiprocessor // (
+        regs_per_warp * (variant.threads // 32))
+    return min(by_smem, by_threads, by_regs)
 
 
 def max_abs_err(got, ref) -> int:
@@ -76,13 +136,13 @@ def require_equal(what: str, got, ref) -> int:
 def main() -> None:
     # ---- 1. device ---------------------------------------------------------
     dev = require_cuda(0)
-    card = card_line()
+    card = card_line(dev)
     say(f"[1 device] {torch.cuda.get_device_name(dev)} | nvidia-smi: {card} "
         f"| torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {torch.cuda.device_count()} device(s)")
 
-    from rambl_tpu.config import PRESETS
-    from rambl_tpu.oracle.sw import sw_batch, traceback_batch
+    from rambl_tpu_torch.config import PRESETS
+    from rambl_tpu_torch.oracle.sw import sw_batch, traceback_batch
     from rambl_tpu_torch.ops import sw as tsw
     from rambl_tpu_torch.ops import sw_cuda
     from rambl_tpu_torch.utils.sw_cases import (
@@ -101,12 +161,14 @@ def main() -> None:
     t0 = time.perf_counter()
     lib_path = sw_cuda.load_library()._name
     build_s = time.perf_counter() - t0
-    with open(sw_cuda.BUILD_LOG) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     say(f"[2 build] {lib_path} in {build_s:.2f} s "
         f"(nvcc {' '.join(sw_cuda.NVCC_FLAGS)})")
-    for ln in ptxas:
-        say(f"    ptxas: {ln}")
+    kernel_regs = {}
+    with open(sw_cuda.BUILD_LOG) as f:
+        for name, regs, spill in ptxas_report(f):
+            say(f"    ptxas: {name}: {regs}; {spill}")
+            kernel_regs[name] = int(re.search(r"(\d+) registers",
+                                              regs).group(1))
 
     # ---- 3. kernels vs twin, bit for bit -----------------------------------
     def on_card(*arrays):
@@ -155,10 +217,10 @@ def main() -> None:
         f"equal to the NumPy oracle")
 
     # ---- 4. the slice: stream_align over config 2 --------------------------
-    from rambl_tpu.data.simulate import simulate_dataset
-    from rambl_tpu.index.builder import build_seed_index
-    from rambl_tpu.index.colmap import build_col_maps
-    from rambl_tpu.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.data.simulate import simulate_dataset
+    from rambl_tpu_torch.index.builder import build_seed_index
+    from rambl_tpu_torch.index.colmap import build_col_maps
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
     from rambl_tpu_torch.ops.seed import SeedTable
     from rambl_tpu_torch.pipeline import align as talign
     from rambl_tpu_torch.pipeline.assemble import (
@@ -229,7 +291,7 @@ def main() -> None:
     aligned = float((merged["ref"] >= 0).float().mean())
     binned = float((bins >= 0).float().mean())
 
-    from rambl_tpu.oracle.align import align_reads
+    from rambl_tpu_torch.oracle.align import align_reads
 
     n_or = 512
     orc = align_reads(ds.reads[:n_or], ds.read_lens[:n_or], ds.ref_seqs,
@@ -299,7 +361,7 @@ def main() -> None:
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device work in the stream")
-    card = card_line()
+    card = card_line(dev)
     say(f"[6 timings] card: {card}")
     say(f"    profiled stream of {n_prof} reads: {prof_s * 1e3:.1f} ms wall, "
         f"device busy {busy_ms:.1f} ms = {busy_ms / 16:.3f} ms per batch, "
@@ -320,20 +382,142 @@ def main() -> None:
     say(f"    K3 sw_traceback, {n_tb} pairs: {k3_ms:.3f} ms; twin "
         f"{k3_tw:.3f} ms [{card}]")
 
+    # ---- 7. S1 and S2 against their plain versions, bit for bit -----------
+    from rambl_tpu_torch import bench as tbench
+    from rambl_tpu_torch.ops import sw_variants as sv
+    from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
+
+    P1, L1, W1 = bench_sw_variants.PAIRS, bench_sw_variants.L, \
+        bench_sw_variants.W
+    q1n, w1n = planted_pairs(15, P1, L1, W1)
+    q1, w1 = on_card(q1n, w1n)
+    plain1 = tsw.sw_score(q1, w1, sc)
+    s1_plain_ms = cuda_time(tsw.sw_score, q1, w1, sc, iters=3)
+    orc1 = sw_batch(q1n[:256], w1n[:256], sc, want_dirs=False)[:3]
+    props = torch.cuda.get_device_properties(dev)
+    err["variant"], occ = 0, {}
+    for v in sv.VARIANTS:
+        fn = sv.make_score_fn(sc, L1, W1, threads=v.threads, unroll=v.unroll,
+                              stage_q=v.stage_q)
+        got = fn(q1, w1)
+        torch.cuda.synchronize()
+        err["variant"] = max(err["variant"],
+                             require_equal(f"S1 {v.name}", got, plain1))
+        for g, r in zip(got, orc1):
+            np.testing.assert_array_equal(r, g[:256].cpu().numpy(),
+                                          err_msg=f"S1 {v.name} vs oracle")
+        regs = kernel_regs[f"sw_variant_kernel<{v.threads},{v.unroll},"
+                           f"{int(v.stage_q)}>"]
+        occ[v.name] = (blocks_per_sm(v, L1, regs, props), regs)
+    del q1, w1, plain1
+
+    P2, L2, W2 = ablate_prep.PAIRS, ablate_prep.L, ablate_prep.W
+    rng = np.random.default_rng(16)
+    q2n = rng.integers(0, 5, (P2, L2)).astype(np.int8)
+    w2n = rng.integers(0, 4, (P2, W2)).astype(np.int8)
+    n_homo = P2 // 3
+    w2n[:n_homo, 2:L2 - 6] = q2n[:n_homo, 1:L2 - 7] % 4     # planted homology
+    q2n[-128:] = 4              # code 4 never equals w's 0..3: no positive cell
+    qT, wT = sv.prep(*on_card(q2n, w2n))
+    key2 = sv.score_pretransposed(qT, wT, sc, W2)
+    q2, w2 = qT.t().contiguous(), wT[:W2].t().contiguous()
+    plain2 = tsw.sw_raw_key(q2, w2, sc)
+    s2_plain_ms = cuda_time(tsw.sw_raw_key, q2, w2, sc, iters=3)
+    torch.cuda.synchronize()
+    err["pretransposed"] = require_equal("S2 raw key", [key2], [plain2])
+    none_key = int(key2[-1])
+    if not (none_key < 0 and bool((key2[-128:] == none_key).all())):
+        raise AssertionError("S2: pairs with no positive cell must share one "
+                             "negative raw key")
+    for g, r in zip(sv.decode_raw_key(key2[:256], W2),
+                    sw_batch(q2n[:256], w2n[:256], sc, want_dirs=False)[:3]):
+        np.testing.assert_array_equal(r, g.cpu().numpy(), err_msg="S2 oracle")
+    del qT, wT, q2, w2, key2, plain2
+    say(f"[7 bench kernels] S1: {len(sv.VARIANTS)} variants on {P1} planted "
+        f"pairs x {L1} x {W1} equal the plain version bit for bit (plain "
+        f"{s1_plain_ms:.1f} ms); S2 raw key on {P2} pairs x {L2} x {W2} equals "
+        f"the plain version bit for bit (plain {s2_plain_ms:.1f} ms; a pair "
+        f"with no positive cell keys {none_key}); 256 pairs each equal the "
+        f"NumPy oracle")
+    say(f"    S1 resident blocks per SM at L={L1} (shared memory a block, "
+        f"registers a thread; {props.shared_memory_per_multiprocessor} B "
+        f"shared memory an SM): " + ", ".join(
+            f"{v.name} {occ[v.name][0]} ({v.smem_bytes(L1)} B, "
+            f"{occ[v.name][1]} regs)" for v in sv.VARIANTS))
+
+    # ---- 8. the bench path: each entry point once, launches counted --------
+    def counted(run):
+        sw_cuda.reset_launches()
+        sv.reset_launches()
+        res = run(device=dev, out=lambda *a: say("    " + " ".join(a)))
+        torch.cuda.synchronize()
+        return res, {**sw_cuda.LAUNCHES, **sv.LAUNCHES}
+
+    say("[8 bench path] python -m rambl_tpu_torch.bench")
+    bench_line, bench_n = counted(tbench.run)
+    say("    " + json.dumps(bench_line))
+    say("[8 bench path] python -m rambl_tpu_torch.scripts.bench_sw_variants")
+    sweep, sweep_n = counted(bench_sw_variants.run)
+    say("[8 bench path] python -m rambl_tpu_torch.scripts.ablate_prep")
+    abl, abl_n = counted(ablate_prep.run)
+    for what, n_run, keys in (("bench", bench_n, ("score", "align",
+                                                  "traceback")),
+                              ("bench_sw_variants", sweep_n,
+                               ("score", "variant")),
+                              ("ablate_prep", abl_n,
+                               ("score", "pretransposed"))):
+        for k in keys:
+            if n_run[k] <= 0:
+                raise AssertionError(f"{what}: kernel {k} never launched")
+        say(f"    launches in {what}: {n_run}")
+
+    peak = int32_ops_per_s(dev)
+    n_path = PAIRS
+    # K3 reads one direction byte a step of each pair's walk, and no others
+    k3_steps = int(tsw.sw_traceback(tdirs_twin, tie, tje, L, W,
+                                    return_steps=True)[1].sum())
+    bounds = {
+        "K1": bound(OPS_PER_CELL * n_path * ROWS * W,
+                    n_path * (L + W) + 12 * n_path, peak),
+        "K2": bound(OPS_PER_CELL_DIRS * n_tb * ROWS * W,
+                    n_tb * (L + W) + 12 * n_tb + tdirs.numel(), peak),
+        "K3": bound(OPS_PER_TRACE_STEP * k3_steps,
+                    k3_steps + 8 * n_tb + 4 * n_tb * L, peak),
+        "S1": bound(OPS_PER_CELL * P1 * L1 * W1, P1 * (L1 + W1) + 12 * P1,
+                    peak),
+        "S2": bound(OPS_PER_CELL * P2 * L2 * W2, 4 * P2 * (L2 + W2 + 1), peak),
+    }
+    best_v = max((k for k in sweep["results"] if k != "prod-K1"),
+                 key=lambda k: sweep["results"][k]["gcups"])
+    say(f"[8 bench path] bounds at {peak / 1e12:.2f} T INT32 op/s and "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (K3: {k3_steps} walk steps over "
+        f"{n_tb} pairs): " + ", ".join(
+            f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in bounds.items())
+        + f" [{card}]")
+
     src = "rambl_tpu_torch/csrc/sw.cu"
+    src_v = "rambl_tpu_torch/csrc/sw_variants.cu"
+
+    def row(name, source, replaces, launched, error, ms, plain_ms, which):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": error, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
+                "library_ms": None}
+
     kernels = [
-        {"name": "sw_score (K1)", "route": "cuda", "source": src,
-         "replaces": "rambl_tpu/ops/sw_pallas.py:75",
-         "launches": launches["score"], "max_abs_err": err["score"],
-         "ms": k1[ROWS][0], "plain_ms": k1[ROWS][1]},
-        {"name": "sw_align (K2)", "route": "cuda", "source": src,
-         "replaces": "rambl_tpu/ops/sw_pallas.py:150",
-         "launches": launches["align"], "max_abs_err": err["align"],
-         "ms": k2_ms, "plain_ms": k2_tw},
-        {"name": "sw_traceback (K3)", "route": "cuda", "source": src,
-         "replaces": "rambl_tpu/ops/sw_pallas.py:317",
-         "launches": launches["traceback"], "max_abs_err": err["traceback"],
-         "ms": k3_ms, "plain_ms": k3_tw},
+        row("sw_score (K1)", src, "rambl_tpu/ops/sw_pallas.py:75",
+            launches["score"], err["score"], k1[ROWS][0], k1[ROWS][1], "K1"),
+        row("sw_align (K2)", src, "rambl_tpu/ops/sw_pallas.py:150",
+            launches["align"], err["align"], k2_ms, k2_tw, "K2"),
+        row("sw_traceback (K3)", src, "rambl_tpu/ops/sw_pallas.py:317",
+            launches["traceback"], err["traceback"], k3_ms, k3_tw, "K3"),
+        row(f"sw_variant_score (S1, {best_v})", src_v,
+            "scripts/bench_sw_variants.py:48", sweep_n["variant"],
+            err["variant"], sweep["results"][best_v]["ms"], s1_plain_ms, "S1"),
+        row("sw_pretransposed (S2)", src_v, "scripts/ablate_prep.py:47",
+            abl_n["pretransposed"], err["pretransposed"],
+            abl["kernel_only"]["ms"], s2_plain_ms, "S2"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,24 +1,30 @@
 """rambl_tpu_torch: the PyTorch + CUDA port of rambl_tpu for NVIDIA Hopper.
 
 The JAX package `rambl_tpu` stays the reference; this package reproduces its
-outputs bit for bit. Host layers that never import jax are shared, not
-copied: `rambl_tpu.config`, `rambl_tpu.index`, `rambl_tpu.data`,
-`rambl_tpu.io`, `rambl_tpu.oracle` and `rambl_tpu.utils.{errors,metrics,
-checkpoint}`.
+outputs bit for bit and imports nothing of it (nor jax). The host layers it
+needs are its own copies, under the reference's module names, held equal to
+the originals by tests/test_torch_host_layers.py: `config`, `utils.errors`,
+`io.pack`, `index.{builder,taxonomy,colmap}`, `data.simulate` and
+`oracle.{sw,seed,align}`.
 
 Layout mirrors `rambl_tpu`:
 
 - `ops.sw`: plain PyTorch Smith-Waterman (score, direction bits,
-  traceback), the twin of every SW kernel and the CPU path;
-- `ops.sw_cuda`: hand-written CUDA kernels for sm_90a
+  traceback, raw best key), the twin of every SW kernel and the CPU path;
+- `ops.sw_cuda`: hand-written CUDA kernels K1-K3 for sm_90a
   (`csrc/sw.cu`), built with nvcc at first use;
+- `ops.sw_variants`: the K1 variant kernel (S1) and K1 on pre-transposed
+  inputs (S2) (`csrc/sw_variants.cu`), for the bench scripts;
 - `ops.seed`: k-mer hashing, CSR probe, candidate voting, window gather;
 - `pipeline.align` / `binning` / `pileup`: the per-batch align step, LCA
   binning and node-space pileup accumulators;
-- `pipeline.assemble.stream_align`: the batch stream over a whole read set.
+- `pipeline.assemble.stream_align`: the batch stream over a whole read set;
+- `bench`, `scripts.bench_sw_variants`, `scripts.ablate_prep`: the bench
+  entry points.
 
-Every function takes tensors placed by the caller; nothing picks a device
-quietly (`device.require_cuda`).
+Entry points run on the first CUDA card unless the caller passes a device
+("cpu" for the plain PyTorch path); nothing falls back from the card to the
+CPU on its own (`device.require_cuda`).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -6,6 +6,8 @@ state and never falls back from the card to the CPU on its own.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,3 +23,23 @@ def require_cuda(index: int = 0) -> torch.device:
             f"cuda:{index} requested but only {torch.cuda.device_count()} "
             "device(s) are visible")
     return torch.device("cuda", index)
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them, for printing beside every
+    time measured on it; "cpu, host clock" for a CPU device."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "cpu, host clock"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         f"--id={device.index or 0}"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def resolve(device) -> torch.device:
+    """An entry point's device: the first CUDA card when None, else the
+    device the caller asked for ("cpu" for the plain PyTorch path)."""
+    return require_cuda() if device is None else torch.device(device)

@@ -1,8 +1,8 @@
 """Seeding and candidate voting in PyTorch.
 
 Port of `rambl_tpu/ops/seed.py`, bit-identical to it and to
-`rambl_tpu.oracle.seed`: query k-mers at fixed stride positions are hashed
-into the CSR seed table of `rambl_tpu.index.builder.SeedIndex`, the first
+`rambl_tpu_torch.oracle.seed`: query k-mers at fixed stride positions are hashed
+into the CSR seed table of `rambl_tpu_torch.index.builder.SeedIndex`, the first
 `bucket_cap` entries of each bucket are compared by key, every hit votes for
 a (reference, diagonal bin) candidate, and the top C candidates per read are
 taken by (votes desc, key asc).
@@ -20,14 +20,14 @@ from typing import NamedTuple
 
 import torch
 
-from rambl_tpu.config import PipelineConfig
+from rambl_tpu_torch.config import PipelineConfig
 
 _HASH_MULT = 2654435769
 BIGK = 2 ** 31 - 1   # probe miss
 
 
 class SeedTable(NamedTuple):
-    """Device copy of the CSR seed table (`rambl_tpu.index.builder.SeedIndex`)."""
+    """Device copy of the CSR seed table (`rambl_tpu_torch.index.builder.SeedIndex`)."""
 
     bucket_start: torch.Tensor   # (P + 1,) int32 CSR offsets
     entry_key: torch.Tensor      # (n_entries,) int32

@@ -1,7 +1,7 @@
 """Affine-gap local Smith-Waterman in plain PyTorch: the twin of the kernels.
 
 Port of `rambl_tpu/ops/sw.py`, bit-identical to it and to the NumPy spec in
-`rambl_tpu.oracle.sw`. These functions are the CPU path of the port and the
+`rambl_tpu_torch.oracle.sw`. These functions are the CPU path of the port and the
 reference that the CUDA kernels in `ops.sw_cuda` are held against on the card.
 
 Rules (fixed by the reference):
@@ -18,13 +18,18 @@ Rules (fixed by the reference):
 The sweep runs over anti-diagonals d = i + j with the batch as the leading
 axis, so each step is a handful of (B, L) tensor ops. Direction bits use the
 reference layout: cell (i, j) of pair b sits at dirs[i + j - 2, b, i - 1].
+
+`sw_raw_key` is the one function with other rules: the TPU score kernel's
+raw output (`rambl_tpu/ops/sw_pallas.py::_score_kernel`, which the S2
+ablation times on its own): match iff q == w on the codes as given, and the
+key maximised over every cell, zero cells included.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rambl_tpu.config import ScoringParams
+from rambl_tpu_torch.config import ScoringParams
 
 CH_ZERO, CH_DIAG, CH_E, CH_F = 0, 1, 2, 3
 
@@ -48,7 +53,9 @@ def decode_best(best: torch.Tensor, W: int):
             torch.where(none, zero, j_end).to(torch.int32))
 
 
-def _sw(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams, want_dirs: bool):
+def _sw(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams, want_dirs: bool,
+        raw_key: bool = False):
+    """-> (best key (B,) int32, dirs or None); see the module docstring."""
     B, L = q.shape
     W = w.shape[1]
     dev = q.device
@@ -77,7 +84,8 @@ def _sw(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams, want_dirs: bool):
         j = d - ii                                          # (L,) 1-based col
         valid = ((j >= 1) & (j <= W))[None, :]
         wj = wi.index_select(1, torch.clamp(j - 1, 0, W - 1))
-        s = torch.where(q_ok & (qi == wj) & (wj < 4), s_match, s_mismatch)
+        match = (qi == wj) if raw_key else q_ok & (qi == wj) & (wj < 4)
+        s = torch.where(match, s_match, s_mismatch)
 
         Hdiag = H2[:, :L]
         Hup = H1[:, :L]
@@ -109,7 +117,8 @@ def _sw(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams, want_dirs: bool):
         Fnew = torch.where(valid, Fnew, NEG)
 
         key = Hnew * TIE - (ii * (W + 1) + j)[None, :]
-        key = torch.where(valid & (Hnew > 0), key, NONE_KEY)
+        key = torch.where(valid if raw_key else valid & (Hnew > 0), key,
+                          NONE_KEY)
         best = torch.maximum(best, key.amax(dim=1))
 
         H2 = H1
@@ -117,32 +126,40 @@ def _sw(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams, want_dirs: bool):
         E1 = torch.cat([ncol, Enew], dim=1)
         F1 = torch.cat([ncol, Fnew], dim=1)
 
-    score, i_end, j_end = decode_best(best, W)
-    return score, i_end, j_end, dirs
+    return best, dirs
 
 
 def sw_score(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):
     """Score-only pass. q (B, L) int8, w (B, W) int8 ->
     (score, i_end, j_end), each (B,) int32 with a 1-based end cell."""
-    s, ie, je, _ = _sw(q, w, sc, want_dirs=False)
-    return s, ie, je
+    return decode_best(_sw(q, w, sc, want_dirs=False)[0], w.shape[1])
 
 
 def sw_align(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):
     """Full pass with direction bits: (score, i_end, j_end, dirs), dirs
     (L + W - 1, B, L) uint8 in the anti-diagonal layout of the module
     docstring."""
-    return _sw(q, w, sc, want_dirs=True)
+    best, dirs = _sw(q, w, sc, want_dirs=True)
+    return (*decode_best(best, w.shape[1]), dirs)
+
+
+def sw_raw_key(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):
+    """The TPU score kernel's raw best key (module docstring). q (B, L) and
+    w (B, W) integer codes -> (B,) int32; `decode_best` turns it into
+    (score, i_end, j_end)."""
+    return _sw(q, w, sc, want_dirs=False, raw_key=True)[0]
 
 
 def sw_traceback(dirs: torch.Tensor, i_end: torch.Tensor, j_end: torch.Tensor,
-                 L: int, W: int) -> torch.Tensor:
+                 L: int, W: int, return_steps: bool = False):
     """Walk the M/E/F state machine back from each end cell.
 
     dirs: (D, B, Lk) uint8 from `sw_align` on Lk query rows (Lk <= L).
     Returns ref_col (B, L) int32: the window column of each query position
     on a diagonal (match) move, -1 elsewhere. The walk takes at most
-    Lk + W + 2 steps and stops at i <= 0, j <= 0 or on a zero cell.
+    Lk + W + 2 steps and stops at i <= 0, j <= 0 or on a zero cell. With
+    `return_steps`, returns (ref_col, steps): steps (B,) int32 counts the
+    steps of each pair's walk, one direction byte read each.
     """
     dev = i_end.device
     D, B, Lk = dirs.shape
@@ -151,10 +168,13 @@ def sw_traceback(dirs: torch.Tensor, i_end: torch.Tensor, j_end: torch.Tensor,
     j = j_end.to(torch.int32)
     st = torch.where((i > 0) & (j > 0), 0, 3).to(torch.int32)
     ref_col = torch.full((B, L + 1), -1, dtype=torch.int32, device=dev)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
 
     for _ in range(Lk + W + 2):
         if not bool((st != 3).any()):
             break
+        if return_steps:
+            steps += (st != 3).to(torch.int32)
         d = i + j
         p = dirs[torch.clamp(d - 2, 0, D - 1).long(), bidx,
                  torch.clamp(i - 1, 0, Lk - 1).long()].to(torch.int32)
@@ -180,4 +200,4 @@ def sw_traceback(dirs: torch.Tensor, i_end: torch.Tensor, j_end: torch.Tensor,
         nst = torch.where(act_f, torch.where(fop == 1, 0, 2), nst)
         st = torch.where((ni <= 0) | (nj <= 0), 3, nst).to(torch.int32)
         i, j = ni, nj
-    return ref_col[:, :L]
+    return (ref_col[:, :L], steps) if return_steps else ref_col[:, :L]

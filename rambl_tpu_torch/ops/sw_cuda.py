@@ -13,7 +13,8 @@ back. On CPU tensors it runs the plain PyTorch twin from `ops.sw`, which is
 what the CPU tests exercise. `LAUNCHES` counts kernel launches, one per
 launch and nowhere else, so a run can show that it went through the kernels.
 
-The library is built with nvcc for sm_90a at first use into `_build/`
+The library is built from every source in `csrc/` (these kernels and those
+of `ops.sw_variants`) with nvcc for sm_90a at first use into `_build/`
 (ignored by git) and rebuilt when the sources or flags change. The C entry
 points take plain pointers and the stream, loaded with ctypes.
 
@@ -33,7 +34,7 @@ import threading
 
 import torch
 
-from rambl_tpu.config import ScoringParams
+from rambl_tpu_torch.config import ScoringParams
 from rambl_tpu_torch.ops import sw as _twin
 
 LAUNCHES = {"score": 0, "align": 0, "traceback": 0}
@@ -115,8 +116,11 @@ def load_library() -> ctypes.CDLL:
             lib.rambl_sw_score.argtypes = [P] * 5 + [I] * 9 + [P]
             lib.rambl_sw_align.argtypes = [P] * 6 + [I] * 9 + [P]
             lib.rambl_sw_traceback.argtypes = [P] * 4 + [I] * 4 + [P]
+            lib.rambl_sw_variant_score.argtypes = [P] * 5 + [I] * 11 + [P]
+            lib.rambl_sw_pretransposed.argtypes = [P] * 3 + [I] * 8 + [P]
             for fn in (lib.rambl_sw_score, lib.rambl_sw_align,
-                       lib.rambl_sw_traceback):
+                       lib.rambl_sw_traceback, lib.rambl_sw_variant_score,
+                       lib.rambl_sw_pretransposed):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -153,6 +157,12 @@ def _check_key(rows: int, W: int) -> None:
             "window_margin")
 
 
+def _check_scores(rows: int, sc: ScoringParams) -> None:
+    # H and E share one 32-bit word in the kernels (csrc/sw_common.cuh)
+    if rows * sc.match >= 1 << 15 or sc.gap_open + sc.gap_extend >= 1 << 15:
+        raise ValueError("scores out of the kernel's 16-bit H/E range")
+
+
 def _check_pair_cuda(q: torch.Tensor, w: torch.Tensor, rows: int,
                      sc: ScoringParams) -> None:
     for name, t in (("q", q), ("w", w)):
@@ -166,9 +176,7 @@ def _check_pair_cuda(q: torch.Tensor, w: torch.Tensor, rows: int,
         raise ValueError(f"the kernel reads q four codes at a time: L={L} "
                          f"and rows={rows} must be multiples of 4 and q "
                          "4-byte aligned")
-    # H and E share one 32-bit word in the kernel (csrc/sw.cu)
-    if rows * sc.match >= 1 << 15 or sc.gap_open + sc.gap_extend >= 1 << 15:
-        raise ValueError("scores out of the kernel's 16-bit H/E range")
+    _check_scores(rows, sc)
     if q.shape[0] >= 1 << 31:
         raise ValueError(f"batch of {q.shape[0]} pairs exceeds int32")
 

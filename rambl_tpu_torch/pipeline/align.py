@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from rambl_tpu.config import PipelineConfig
+from rambl_tpu_torch.config import PipelineConfig
 from rambl_tpu_torch.ops.seed import (
     SeedTable,
     gather_windows,
@@ -27,6 +27,7 @@ from rambl_tpu_torch.ops.seed import (
     seed_candidates,
 )
 from rambl_tpu_torch.ops.sw_cuda import sw_align_traceback_cuda, sw_score_cuda
+from rambl_tpu_torch.utils.errors import UserError
 
 
 class AlignRecords(NamedTuple):
@@ -60,8 +61,6 @@ def check_sw_rows(read_lens: torch.Tensor, cfg: PipelineConfig) -> None:
         return
     ml = int(read_lens.max())
     if ml > cfg.sw_rows:
-        from rambl_tpu.utils.errors import UserError
-
         raise UserError(
             f"cfg.sw_rows={cfg.sw_rows} < longest read {ml}: the truncated "
             "SW sweep is only exact when every real read fits")

@@ -17,11 +17,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rambl_tpu.config import PipelineConfig
+from rambl_tpu_torch.config import PipelineConfig
+from rambl_tpu_torch.device import resolve
+from rambl_tpu_torch.index.colmap import build_col_maps
 from rambl_tpu_torch.ops.seed import SeedTable
 from rambl_tpu_torch.pipeline.align import align_batch
 from rambl_tpu_torch.pipeline.binning import bin_batch
 from rambl_tpu_torch.pipeline.pileup import node_pileup
+from rambl_tpu_torch.utils.errors import UserError
 
 RETAINED = ("query", "ref_col", "bins", "score", "ref", "strand")
 
@@ -97,8 +100,10 @@ def _pad_batches(reads: np.ndarray, lens: np.ndarray, batch: int):
 
 
 def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
-                 cfg: PipelineConfig, mesh=None, col_maps=None, *, device):
-    """Stream host reads through the align + bin step on `device`.
+                 cfg: PipelineConfig, mesh=None, col_maps=None, *,
+                 device=None):
+    """Stream host reads through the align + bin step on `device` (the
+    first CUDA card when None; pass "cpu" for the plain PyTorch path).
 
     reads (N, L) int8 and lens (N,) int32 are host numpy arrays; index is the
     host `SeedIndex`, tables the host `TaxonomyTables`. Returns
@@ -116,16 +121,12 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
     batch ahead of the batch being aligned.
     """
     if cfg.sw_rows and int(np.max(lens, initial=0)) > cfg.sw_rows:
-        from rambl_tpu.utils.errors import UserError
-
         raise UserError(
             f"cfg.sw_rows={cfg.sw_rows} < longest read {int(np.max(lens))}: "
             "the truncated SW sweep is only exact when every real read fits")
     if mesh is not None:
         raise NotImplementedError("multi-device streaming is not ported yet")
-    from rambl_tpu.index.colmap import build_col_maps
-
-    device = torch.device(device)
+    device = resolve(device)
     table = SeedTable.from_index(index, device)
     if col_maps is None:
         col_maps = build_col_maps(np.asarray(ref_seqs), np.asarray(ref_lens),

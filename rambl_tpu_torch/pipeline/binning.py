@@ -1,7 +1,7 @@
 """Taxonomic binning: LCA over each read's tied candidate references.
 
 Port of `rambl_tpu/pipeline/binning.py`, bit-identical to it and to
-`rambl_tpu.index.taxonomy.lca_of_set`: candidate taxa are gathered through
+`rambl_tpu_torch.index.taxonomy.lca_of_set`: candidate taxa are gathered through
 the dense ancestor-path table and the LCA is the deepest depth at which all
 valid candidates' paths agree.
 """
@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from rambl_tpu.config import PipelineConfig
-from rambl_tpu.index.taxonomy import MAX_DEPTH
+from rambl_tpu_torch.config import PipelineConfig
+from rambl_tpu_torch.index.taxonomy import MAX_DEPTH
 from rambl_tpu_torch.pipeline.align import AlignRecords
 
 

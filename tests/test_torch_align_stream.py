@@ -4,30 +4,30 @@ reference, bit for bit.
 `rambl_tpu_torch.pipeline.{align,binning,pileup,assemble}` against
 `rambl_tpu.pipeline.{align,binning,pileup}` and
 `rambl_tpu.pipeline.assemble._stream_align` on the shared `small_ds` mock
-community (600 reads of 100 bp, 10 references, 28 taxonomy nodes). Torch runs
-on CPU tensors, where the SW wrappers take their plain PyTorch twins. All
+community (600 reads of 100 bp, 10 references, 28 taxonomy nodes). Each
+package gets its own config class built from the same fields. Torch runs on
+CPU tensors, where the SW wrappers take their plain PyTorch twins. All
 outputs are integers: no tolerance.
 """
-
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rambl_tpu.config import PipelineConfig
+from rambl_tpu.config import PipelineConfig as JConfig
 from rambl_tpu.ops.seed import SeedTable as JSeedTable
 from rambl_tpu.pipeline import align as jalign
 from rambl_tpu.pipeline import binning as jbinning
 from rambl_tpu.pipeline import pileup as jpileup
 from rambl_tpu.pipeline.assemble import _stream_align
-from rambl_tpu.utils.errors import UserError
+from rambl_tpu_torch.config import PipelineConfig as TConfig
 from rambl_tpu_torch.ops.seed import SeedTable as TSeedTable
 from rambl_tpu_torch.pipeline import align as talign
 from rambl_tpu_torch.pipeline import assemble as tassemble
 from rambl_tpu_torch.pipeline import binning as tbinning
 from rambl_tpu_torch.pipeline import pileup as tpileup
+from rambl_tpu_torch.utils.errors import UserError
 
 N_ALIGN = 256
 
@@ -36,14 +36,14 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _align_both(ds, index, cfg):
+def _align_both(ds, index, **cfg_fields):
     reads, lens = ds.reads[:N_ALIGN], ds.read_lens[:N_ALIGN]
     ref = jalign.align_batch(jnp.asarray(reads), jnp.asarray(lens),
                              JSeedTable.from_index(index),
-                             jnp.asarray(ds.ref_seqs), cfg)
+                             jnp.asarray(ds.ref_seqs), JConfig(**cfg_fields))
     got = talign.align_batch(_t(reads), _t(lens),
                              TSeedTable.from_index(index, "cpu"),
-                             _t(ds.ref_seqs), cfg)
+                             _t(ds.ref_seqs), TConfig(**cfg_fields))
     return ref, got
 
 
@@ -69,7 +69,7 @@ def records(small_ds, small_index):
 
     talign.sw_align_traceback_cuda = counting
     try:
-        ref, got = _align_both(small_ds, small_index, PipelineConfig())
+        ref, got = _align_both(small_ds, small_index)
     finally:
         talign.sw_align_traceback_cuda = real
     return ref, got, sum(calls)
@@ -86,17 +86,16 @@ def test_align_batch_records(records):
 
 def test_align_batch_sw_rows(small_ds, small_index):
     # the presets' 104-row sweep over 128-padded 100 bp reads is exact
-    cfg = PipelineConfig(sw_rows=104)
-    _assert_records_equal(*_align_both(small_ds, small_index, cfg))
+    _assert_records_equal(*_align_both(small_ds, small_index, sw_rows=104))
 
 
 def test_check_sw_rows():
-    cfg = PipelineConfig(sw_rows=104)
+    cfg = TConfig(sw_rows=104)
     talign.check_sw_rows(torch.tensor([100, 104], dtype=torch.int32), cfg)
     with pytest.raises(UserError, match="sw_rows=104"):
         talign.check_sw_rows(torch.tensor([100, 105], dtype=torch.int32), cfg)
     talign.check_sw_rows(torch.tensor([200], dtype=torch.int32),
-                         PipelineConfig())
+                         TConfig())
 
 
 def test_lca_of_set_ties(small_tax):
@@ -123,7 +122,7 @@ def test_bin_batch(records, small_tax, cfg):
                             jnp.asarray(tax.anc_path), jnp.asarray(tax.depth),
                             cfg)
     gb = tbinning.bin_batch(got, _t(tax.ref_taxon), _t(tax.anc_path),
-                            _t(tax.depth), cfg)
+                            _t(tax.depth), TConfig())
     np.testing.assert_array_equal(np.asarray(rb), gb.numpy())
     assert gb.dtype == torch.int32 and (gb >= 0).any()
 
@@ -155,14 +154,14 @@ def test_node_pileup(records, small_ds, small_tax, cfg, rc_dtype):
 def test_stream_align(small_ds, small_index, small_tax, mode):
     # 600 reads in batches of 256: the last batch is padded with empty reads
     ds = small_ds
-    cfg = PipelineConfig(batch_size=256, sw_rows=104)
+    fields = dict(batch_size=256, sw_rows=104)
     if mode == "slot":
-        cfg = dataclasses.replace(cfg, pileup_slot_nodes=small_tax.n_nodes - 1)
+        fields["pileup_slot_nodes"] = small_tax.n_nodes - 1
     ref = _stream_align(ds.reads, ds.read_lens, small_index, ds.ref_seqs,
-                        ds.ref_lens, small_tax, cfg)
+                        ds.ref_lens, small_tax, JConfig(**fields))
     got = tassemble.stream_align(ds.reads, ds.read_lens, small_index,
-                                 ds.ref_seqs, ds.ref_lens, small_tax, cfg,
-                                 device="cpu")
+                                 ds.ref_seqs, ds.ref_lens, small_tax,
+                                 TConfig(**fields), device="cpu")
     merged_r, merged_g = ref[0], got[0]
     assert list(merged_g) == list(merged_r)
     for k in merged_r:
@@ -180,7 +179,7 @@ def test_stream_align(small_ds, small_index, small_tax, mode):
 
 def test_stream_align_guards(small_ds, small_index, small_tax):
     ds = small_ds
-    cfg = PipelineConfig(batch_size=64, sw_rows=96)
+    cfg = TConfig(batch_size=64, sw_rows=96)
     with pytest.raises(UserError, match="sw_rows=96"):
         tassemble.stream_align(ds.reads, ds.read_lens, small_index,
                                ds.ref_seqs, ds.ref_lens, small_tax, cfg,
@@ -188,5 +187,5 @@ def test_stream_align_guards(small_ds, small_index, small_tax):
     with pytest.raises(NotImplementedError):
         tassemble.stream_align(ds.reads, ds.read_lens, small_index,
                                ds.ref_seqs, ds.ref_lens, small_tax,
-                               PipelineConfig(), mesh=object(), device="cpu")
+                               TConfig(), mesh=object(), device="cpu")
 

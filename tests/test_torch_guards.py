@@ -1,40 +1,52 @@
-"""Guards around the port: no jax on the card's path, no quiet CPU fallback.
+"""Guards around the port: it stands alone, and never falls back quietly.
 
-(a) `rambl_tpu_torch` imports and streams reads with jax made unimportable,
-    as on the GPU machine, which has no jax;
+(a) `rambl_tpu_torch` streams reads and runs its bench with both jax and the
+    JAX package `rambl_tpu` made unimportable, using only its own copies of
+    the host layers; no file of the port and no line of `chip_smoke.py`
+    imports `rambl_tpu`;
 (b) `chip_smoke.py` fails in its first phase where there is no CUDA device,
-    and also when it stands alone without the repository;
+    and also when it stands alone without the repository; the port's entry
+    points raise where there is no card unless the caller asks for the CPU;
 (c) the kernel tests that need the card skip here, with a reason.
 """
 
+import ast
+import json
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCK_JAX = "import sys; sys.modules['jax'] = None; "
+BLOCK_BOTH = BLOCK_JAX + "sys.modules['rambl_tpu'] = None; "
 
 
 def _run(args, cwd=REPO, timeout=300, env_extra=None):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # one intra-op thread: the suite's other workers hold the cores, and an
+    # oversubscribed torch runs these small CPU paths many times slower
+    env["OMP_NUM_THREADS"] = "1"
     env.update(env_extra or {})
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
 
 def test_port_streams_without_jax():
-    code = BLOCK_JAX + """
+    code = BLOCK_BOTH + """
 import numpy as np
 import rambl_tpu_torch
-from rambl_tpu.config import PipelineConfig
-from rambl_tpu.data.simulate import simulate_dataset
-from rambl_tpu.index.builder import build_seed_index
-from rambl_tpu.index.taxonomy import build_taxonomy_tables
+from rambl_tpu_torch.config import PipelineConfig
+from rambl_tpu_torch.data.simulate import simulate_dataset
+from rambl_tpu_torch.index.builder import build_seed_index
+from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
 from rambl_tpu_torch.pipeline.assemble import stream_align
+from rambl_tpu_torch.ops import sw_variants
+from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
 from rambl_tpu_torch.ops import sw_cuda
 from rambl_tpu_torch.utils import timing, sw_cases
 ds = simulate_dataset(n_species=2, refs_per_species=2, n_reads=40, seed=3)
@@ -44,8 +56,9 @@ tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
 merged, counts, span, rc = stream_align(ds.reads, ds.read_lens, idx,
     ds.ref_seqs, ds.ref_lens, tax, cfg, device="cpu")
 assert merged["bins"].shape == (40,) and int(rc.sum()) > 0
-assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-            if sys.modules[m] is not None]
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "rambl_tpu")
+            and sys.modules[m] is not None]
 print("OK", int((merged["ref"] >= 0).sum()))
 """
     r = _run(["-c", code])
@@ -78,5 +91,64 @@ def test_card_tests_skip_here_with_reason():
               "no:cacheprovider", "tests/test_torch_kernels_cuda.py"],
              env_extra={"PYTHONPATH": REPO})
     assert r.returncode == 0, r.stdout[-3000:]
-    assert "6 skipped" in r.stdout and "passed" not in r.stdout
+    assert "20 skipped" in r.stdout and "passed" not in r.stdout
     assert "needs an NVIDIA GPU with CUDA" in r.stdout
+
+
+def test_port_bench_runs_without_jax_or_rambl_tpu():
+    code = BLOCK_BOTH + """
+import json
+from rambl_tpu_torch import bench
+line = bench.run(device="cpu", n_reads=256, batch=128, pairs=128, trials=1,
+                 batches=2, out=lambda *a: print(*a, file=sys.stderr))
+print(json.dumps(line))
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert line["metric"] == "reads_aligned_per_s_per_chip"
+    assert line["device"]["platform"] == "cpu" and line["value"] > 0
+    assert "genes_per_hour" not in line
+    assert "parity: OK" in r.stderr
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_rambl_tpu():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "rambl_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("rambl_tpu", "jax")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["bench", "bench_sw_variants",
+                                   "ablate_prep", "stream_align"])
+def test_entry_points_need_the_card_by_default(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would run")
+    from rambl_tpu_torch import bench
+    from rambl_tpu_torch.pipeline.assemble import stream_align
+    from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
+    from rambl_tpu_torch.config import PipelineConfig
+
+    run = {"bench": bench.run, "bench_sw_variants": bench_sw_variants.run,
+           "ablate_prep": ablate_prep.run}.get(entry)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if run is not None:
+            run()
+        else:
+            stream_align(np.zeros((0, 128), np.int8), np.zeros(0, np.int32),
+                         None, np.zeros((1, 8), np.int8), np.ones(1, np.int32),
+                         None, PipelineConfig())

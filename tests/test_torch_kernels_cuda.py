@@ -1,4 +1,6 @@
-"""The hand-written CUDA SW kernels == their plain PyTorch twin, on the card.
+"""The hand-written CUDA SW kernels == their plain PyTorch twin, on the card:
+K1-K3 (`ops.sw_cuda`) and the bench kernels S1 (every variant) and S2
+(`ops.sw_variants`).
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test here skips with a reason
 elsewhere. The file imports no jax, so it also runs on a machine without it:
@@ -6,17 +8,19 @@ elsewhere. The file imports no jax, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 Kernel and twin get the same inputs on the card and must agree bit for bit;
-256 pairs are also held against the NumPy oracle `rambl_tpu.oracle.sw`.
+256 pairs are also held against the port's NumPy oracle
+`rambl_tpu_torch.oracle.sw`.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rambl_tpu.config import ScoringParams
-from rambl_tpu.oracle.sw import sw_batch, traceback_batch
+from rambl_tpu_torch.config import ScoringParams
+from rambl_tpu_torch.oracle.sw import sw_batch, traceback_batch
 from rambl_tpu_torch.ops import sw as tsw
 from rambl_tpu_torch.ops import sw_cuda
+from rambl_tpu_torch.ops import sw_variants as sv
 from rambl_tpu_torch.utils.sw_cases import (
     gapped_pairs,
     planted_pairs,
@@ -106,3 +110,56 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
     _, ie, je, dirs = sw_cuda.sw_align_cuda(q, w, SC)
     with pytest.raises(ValueError, match="int32"):
         sw_cuda.sw_traceback_cuda(dirs, ie.long(), je, L, W)
+
+
+S1_L, S1_W = 128, 161                # the S1 sweep's shapes (odd W)
+
+
+@pytest.mark.parametrize("variant", sv.VARIANTS, ids=lambda v: v.name)
+def test_variant_kernel_matches_twin(dev, variant):
+    q, w = planted_pairs(5, 4096 + 37, S1_L, S1_W)   # a ragged last block
+    qt, wt = _on(dev, q, w)
+    fn = sv.make_score_fn(SC, S1_L, S1_W, threads=variant.threads,
+                          unroll=variant.unroll, stage_q=variant.stage_q)
+    before = sv.LAUNCHES["variant"]
+    got = fn(qt, wt)
+    torch.cuda.synchronize()
+    assert sv.LAUNCHES["variant"] == before + 1
+    _equal(got, tsw.sw_score(qt, wt, SC))
+    for g, r in zip(got, sw_batch(q[:256], w[:256], SC, want_dirs=False)):
+        np.testing.assert_array_equal(r, g[:256].cpu().numpy())
+
+
+def test_pretransposed_kernel_matches_twin(dev):
+    rng = np.random.default_rng(6)
+    n, W = 4096 + 37, 160
+    qT = rng.integers(0, 5, (L, n)).astype(np.int32)
+    wT = rng.integers(0, 4, (W + L + 1, n)).astype(np.int32)
+    wT[2:L - 6, : n // 3] = qT[1:L - 7, : n // 3] % 4     # planted homology
+    qT[:, -64:] = 4                                      # no positive cell
+    qt, wt = _on(dev, qT, wT)
+    before = sv.LAUNCHES["pretransposed"]
+    key = sv.score_pretransposed(qt, wt, SC, W)
+    torch.cuda.synchronize()
+    assert sv.LAUNCHES["pretransposed"] == before + 1
+    _equal([key], [tsw.sw_raw_key(qt.t().contiguous(),
+                                  wt[:W].t().contiguous(), SC)])
+    assert (key[-64:] == key[-1]).all() and int(key[-1]) < 0
+    ref = sw_batch(qT[:, :256].T.astype(np.int8), wT[:W, :256].T.astype(
+        np.int8), SC, want_dirs=False)
+    for g, r in zip(sv.decode_raw_key(key[:256], W), ref[:3]):
+        np.testing.assert_array_equal(r, g.cpu().numpy())
+
+
+def test_bench_wrappers_reject_bad_inputs(dev):
+    q, w = _on(dev, *planted_pairs(7, 8, S1_L, S1_W))
+    fn = sv.make_score_fn(SC, S1_L, S1_W)
+    with pytest.raises(ValueError, match="int8"):
+        fn(q.to(torch.int32), w)
+    with pytest.raises(ValueError, match="different devices"):
+        fn(q, w.cpu())
+    qT, wT = sv.prep(q[:, :L].contiguous(), w[:, :W].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        sv.score_pretransposed(qT.to(torch.int8), wT, SC, W)
+    with pytest.raises(ValueError, match="int32"):
+        sv.score_pretransposed(qT.t().contiguous().t(), wT, SC, W)

@@ -3,7 +3,8 @@
 Hash, query k-mers, CSR probe + vote selection, window gather and reverse
 complement of `rambl_tpu_torch.ops.seed` against `rambl_tpu.ops.seed` on the
 same numpy inputs (the shared `small_ds` mock community and seeded random
-arrays). All outputs are integers: no tolerance.
+arrays); the port gets its own config class with the reference's defaults.
+All outputs are integers: no tolerance.
 """
 
 import jax.numpy as jnp
@@ -13,7 +14,10 @@ import torch
 
 from rambl_tpu.index.builder import hash_kmer as hash_kmer_np
 from rambl_tpu.ops import seed as jseed
+from rambl_tpu_torch.config import PipelineConfig as TConfig
 from rambl_tpu_torch.ops import seed as tseed
+
+TCFG = TConfig()
 
 
 def _t(a):
@@ -37,7 +41,7 @@ def test_query_kmers(small_ds, cfg):
     reads, lens = small_ds.reads[:200].copy(), small_ds.read_lens[:200].copy()
     reads[3, 10] = 4                      # an N inside a read
     lens[5] = 7                           # shorter than k: no valid k-mer
-    keys, valid = tseed.query_kmers(_t(reads), _t(lens), cfg)
+    keys, valid = tseed.query_kmers(_t(reads), _t(lens), TCFG)
     rk, rv = jseed.query_kmers_jax(jnp.asarray(reads), jnp.asarray(lens), cfg)
     np.testing.assert_array_equal(np.asarray(rk), keys.numpy())
     np.testing.assert_array_equal(np.asarray(rv), valid.numpy())
@@ -56,7 +60,7 @@ def test_seed_candidates(small_ds, small_index, cfg):
     for q in (reads, rc):
         ref = jseed.seed_candidates_jax(jnp.asarray(q), jnp.asarray(lens), jt,
                                         cfg)
-        got = tseed.seed_candidates(_t(q), _t(lens), tt, cfg)
+        got = tseed.seed_candidates(_t(q), _t(lens), tt, TCFG)
         assert set(got) == set(ref)
         for k in ("cand_ref", "cand_wstart", "cand_votes", "cand_valid"):
             np.testing.assert_array_equal(np.asarray(ref[k]), got[k].numpy(),
@@ -69,9 +73,9 @@ def test_probe_hits_match_chunk_row_probe(small_ds, small_index, cfg):
     # the same hits (the reference has extra always-miss slots)
     reads, lens = small_ds.reads[:64], small_ds.read_lens[:64]
     jt, tt = _both_tables(small_index)
-    keys, valid = tseed.query_kmers(_t(reads), _t(lens), cfg)
+    keys, valid = tseed.query_kmers(_t(reads), _t(lens), TCFG)
     bucket = tseed.hash_kmer(keys, tt.n_bits)
-    got = tseed.probe(keys, valid, bucket, tt, cfg).numpy()
+    got = tseed.probe(keys, valid, bucket, tt, TCFG).numpy()
     ref = np.asarray(jseed.probe(jnp.asarray(keys.numpy()),
                                  jnp.asarray(valid.numpy()),
                                  jnp.asarray(bucket.numpy()),
@@ -94,7 +98,7 @@ def test_select_candidates_vote_ties(cfg):
     ]
     ckey = np.array(rows, np.int32).reshape(4, 2, 8)
     ref = jseed.select_candidates(jnp.asarray(ckey), cfg)
-    got = tseed.select_candidates(_t(ckey), cfg)
+    got = tseed.select_candidates(_t(ckey), TCFG)
     for k in ("cand_ref", "cand_wstart", "cand_votes", "cand_valid"):
         np.testing.assert_array_equal(np.asarray(ref[k]), got[k].numpy(),
                                       err_msg=k)

@@ -10,13 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from rambl_tpu.config import ScoringParams
+from rambl_tpu.config import ScoringParams as JScoring
 from rambl_tpu.ops import sw as jsw
 from rambl_tpu.ops.sw_pallas import (
     sw_align_pallas,
     sw_score_pallas,
     sw_traceback_packed,
 )
+from rambl_tpu_torch.config import ScoringParams
 from rambl_tpu_torch.ops import sw as tsw
 from rambl_tpu_torch.ops import sw_cuda
 from rambl_tpu_torch.utils.sw_cases import (
@@ -25,7 +26,8 @@ from rambl_tpu_torch.utils.sw_cases import (
     short_reads,
 )
 
-SC = ScoringParams()
+SC = ScoringParams()      # the port's scoring
+JSC = JScoring()          # the same fields, for the JAX package
 
 
 def _np(*ts):
@@ -54,7 +56,7 @@ def test_twin_matches_scan(case, seed, B, L, W):
     else:
         make = planted_pairs if case == "planted" else gapped_pairs
         q, w = make(seed, B, L, W)
-    ref_j = jsw.sw_align(q, w, SC)
+    ref_j = jsw.sw_align(q, w, JSC)
     ref = _np(*ref_j)
     got = [t.numpy() for t in tsw.sw_align(torch.from_numpy(q),
                                            torch.from_numpy(w), SC)]
@@ -73,7 +75,7 @@ def test_twin_matches_scan(case, seed, B, L, W):
 @pytest.mark.parametrize("seed,L,W", [(0, 32, 48), (1, 16, 24)])
 def test_score_wrapper_matches_pallas_interpret(seed, L, W):
     q, w = planted_pairs(seed, 128, L, W)
-    ref = _np(*sw_score_pallas(q, w, SC, interpret=True))
+    ref = _np(*sw_score_pallas(q, w, JSC, interpret=True))
     got = sw_cuda.sw_score_cuda(torch.from_numpy(q), torch.from_numpy(w), SC)
     _assert_all_equal(ref, [t.numpy() for t in got])
 
@@ -83,7 +85,7 @@ def test_score_wrapper_multi_tile():
     rng = np.random.default_rng(3)
     q = rng.integers(0, 5, (256, 24)).astype(np.int8)
     w = rng.integers(0, 5, (256, 32)).astype(np.int8)
-    ref = _np(*sw_score_pallas(q, w, SC, interpret=True))
+    ref = _np(*sw_score_pallas(q, w, JSC, interpret=True))
     got = sw_cuda.sw_score_cuda(torch.from_numpy(q), torch.from_numpy(w), SC)
     _assert_all_equal(ref, [t.numpy() for t in got])
 
@@ -92,8 +94,8 @@ def test_score_wrapper_rows_truncation():
     # rows=24 over 32-padded queries whose reads are <= 20 long equals the
     # full DP, including the tie-break position of the end cell
     q, w = short_reads(4, 128, 32, 40, 20)
-    ref = _np(*sw_score_pallas(q, w, SC, interpret=True, rows=24))
-    full = _np(*jsw.sw_score(q, w, SC))
+    ref = _np(*sw_score_pallas(q, w, JSC, interpret=True, rows=24))
+    full = _np(*jsw.sw_score(q, w, JSC))
     got = sw_cuda.sw_score_cuda(torch.from_numpy(q), torch.from_numpy(w), SC,
                                 rows=24)
     _assert_all_equal(ref, [t.numpy() for t in got])
@@ -106,16 +108,53 @@ def test_align_traceback_wrapper_matches_pallas_interpret(seed, L, W, rows):
         q, w = short_reads(seed, 128, L, W, rows - 8)
     else:
         q, w = gapped_pairs(seed, 128, L, W)
-    s1, ie1, je1, packed = sw_align_pallas(q, w, SC, interpret=True,
+    s1, ie1, je1, packed = sw_align_pallas(q, w, JSC, interpret=True,
                                            rows=rows)
     rc1 = sw_traceback_packed(packed, ie1, je1, L, W)
     got = sw_cuda.sw_align_traceback_cuda(
         torch.from_numpy(q), torch.from_numpy(w), SC, rows, L, W)
     _assert_all_equal(_np(s1, ie1, je1, rc1), [t.numpy() for t in got])
     # and the scan reference over the full L rows
-    s0, ie0, je0, dirs0 = jsw.sw_align(q, w, SC)
+    s0, ie0, je0, dirs0 = jsw.sw_align(q, w, JSC)
     rc0 = jsw.sw_traceback(dirs0, ie0, je0, L, W)
     _assert_all_equal(_np(s0, ie0, je0, rc0), [t.numpy() for t in got])
+
+
+def _walk_steps(dirs, i, j):
+    """Steps of one pair's traceback, walked cell by cell (dirs (D, Lk))."""
+    st, n = (0 if i > 0 and j > 0 else 3), 0
+    while st != 3:
+        p = int(dirs[i + j - 2, i - 1])
+        n += 1
+        if st == 0:
+            if p & 3 == tsw.CH_DIAG:
+                i, j = i - 1, j - 1
+            st = {tsw.CH_ZERO: 3, tsw.CH_DIAG: 0, tsw.CH_E: 1,
+                  tsw.CH_F: 2}[p & 3]
+        elif st == 1:
+            j, st = j - 1, (0 if (p >> 2) & 1 else 1)
+        else:
+            i, st = i - 1, (0 if (p >> 3) & 1 else 2)
+        if i <= 0 or j <= 0:
+            st = 3
+    return n
+
+
+def test_traceback_steps():
+    # the step count that chip_smoke.py's K3 bound reads: one per direction
+    # byte the walk reads; the ref_col is the one without return_steps
+    q, w = gapped_pairs(9, 48, 24, 32)
+    q[-4:] = 4                                  # no positive cell: no walk
+    s, ie, je, dirs = tsw.sw_align(torch.from_numpy(q), torch.from_numpy(w),
+                                   SC)
+    rc, steps = tsw.sw_traceback(dirs, ie, je, 24, 32, return_steps=True)
+    torch.testing.assert_close(rc, tsw.sw_traceback(dirs, ie, je, 24, 32),
+                               rtol=0, atol=0)
+    want = [_walk_steps(dirs[:, b].numpy(), int(ie[b]), int(je[b]))
+            for b in range(48)]
+    assert steps.tolist() == want
+    assert (steps[-4:] == 0).all()
+    assert (steps >= (rc >= 0).sum(1)).all() and (steps[:-4] > 0).all()
 
 
 def test_align_wrapper_dirs_layout():
@@ -123,7 +162,7 @@ def test_align_wrapper_dirs_layout():
     q, w = gapped_pairs(8, 40, 16, 24)
     qt, wt = torch.from_numpy(q), torch.from_numpy(w)
     s, ie, je, dirs = sw_cuda.sw_align_cuda(qt, wt, SC)
-    ref = _np(*jsw.sw_align(q, w, SC))
+    ref = _np(*jsw.sw_align(q, w, JSC))
     _assert_all_equal(ref[:3], [s.numpy(), ie.numpy(), je.numpy()])
     np.testing.assert_array_equal(ref[3], dirs.permute(0, 2, 1).numpy())
     assert dirs.shape == (16 + 24 - 1, 16, 40) and dirs.dtype == torch.uint8
@@ -156,7 +195,7 @@ def test_best_cell_ties_go_to_lowest_cell():
     w = np.full((4, 16), 2, np.int8)
     w[1, :5] = 0
     w[2] = 4
-    ref = _np(*jsw.sw_score(q, w, SC))
+    ref = _np(*jsw.sw_score(q, w, JSC))
     got = [t.numpy() for t in tsw.sw_score(torch.from_numpy(q),
                                            torch.from_numpy(w), SC)]
     _assert_all_equal(ref, got)
