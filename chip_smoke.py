@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU: the read
-stream, and the K1 bench path (bench, S1 variant sweep, S2 prep ablation).
+stream, the K1 bench path (bench, S1 variant sweep, S2 prep ablation), and
+the data-parallel read stream with a ring-sharded index on a mesh of four
+virtual ranks of the card (K4, the ring rotation).
 
 Run from the repository root, with no arguments:
 
@@ -30,7 +32,25 @@ code is non-zero and no result line is printed:
 8. bench path: `rambl_tpu_torch.bench`, `scripts.bench_sw_variants` and
    `scripts.ablate_prep` once each at their documented sizes, the launch
    counts set to 0 before each and read after it; each kernel of the path
-   must have launched.
+   must have launched;
+9. ring kernel: K4 (`dma` and `dma_barrier`) against the plain rotation
+   (`ppermute`) bit for bit at 2 and 4 virtual ranks on an odd word count,
+   and 64 consecutive rotations on persistent buffers, each rank's shard
+   checked against np.roll of the host copy after every rotation;
+10. mesh stream: `stream_align(mesh=...)` over BASELINE config 4 (the
+   "cohort" preset with ring_impl="dma": batch 16,384, ring-sharded index,
+   sw_rows 104) on 4 virtual ranks of cuda:0, 1,000,000 reads against the
+   full-Greengenes-scale panel of config 3 (100,000 refs, seed 13, leaf per
+   ref, 500 present); K4 and K1-K3 must launch; every output equals the
+   single-device stream bit for bit and the first 512 reads the NumPy
+   oracle; then 4 batches of config 2 through the same mesh with
+   shard_positions, against the single-device dense pileup;
+11. mesh timings: stream wall and reads/s, one batch in CUDA events, the
+   device's busy share (torch.profiler), and K4 per rotation at the path's
+   shard sizes (first held bit for bit against the plain rotation on them)
+   beside the plain rotation and the bare `copy_` calls. On
+   one card the four ranks share its memory, so K4 copies within HBM: its
+   times are not NVLink times.
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
 main path, error against the plain version, and the bound: the larger of the
@@ -52,6 +72,9 @@ from rambl_tpu_torch.device import card_line, require_cuda
 
 N_READS = 1_000_000
 SEED = 7
+#: the panel of BASELINE config 3 (scripts/build_scale_caches.py): 100,000
+#: refs, 153.6 M index entries in 2^27 buckets
+COHORT_REFS = 100_000
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64
 # integer operations per DP cell: E, F, diagonal and H take 3 each (the
@@ -69,7 +92,8 @@ def ptxas_report(lines):
     kernel named with its template arguments."""
     name = spill = None
     for ln in lines:
-        m = re.search(r"Compiling entry function '\S*?\d+(sw_[a-z_]+_kernel)"
+        m = re.search(r"Compiling entry function '\S*?\d+"
+                      r"((?:sw|ring)_[a-z_]+_kernel)"
                       r"(I(?:L[ib]\d+E)+E)?", ln)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) or ""))
@@ -113,6 +137,32 @@ def blocks_per_sm(variant, L: int, regs: int, props) -> int:
     return min(by_smem, by_threads, by_regs)
 
 
+def busy_ms_of(prof) -> float:
+    """Device busy ms of a profiled run: the union of the device's kernel
+    and copy intervals (streams may overlap, so their times do not add)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device work")
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def device_ops(prof) -> list:
+    """The profiled run's kernels and copies (the events with no host time
+    of their own), most device time first."""
+    return sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total == 0
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+
+
 def max_abs_err(got, ref) -> int:
     """Largest |kernel - twin| over a set of integer outputs."""
     err = 0
@@ -150,7 +200,11 @@ def main() -> None:
         planted_pairs,
         short_reads,
     )
-    from rambl_tpu_torch.utils.timing import cuda_time
+    from rambl_tpu_torch.utils.timing import (
+        cuda_time,
+        median_spread,
+        trial_times,
+    )
 
     cfg = PRESETS["small"]
     sc = cfg.scoring
@@ -354,18 +408,14 @@ def main() -> None:
         run_stream(n_prof)
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    on_dev = sorted((e for e in prof.key_averages()
-                     if e.self_cpu_time_total == 0
-                     and e.self_device_time_total > 0),
-                    key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler saw no device work in the stream")
+    on_dev = device_ops(prof)
+    busy_ms = busy_ms_of(prof)
     card = card_line(dev)
     say(f"[6 timings] card: {card}")
     say(f"    profiled stream of {n_prof} reads: {prof_s * 1e3:.1f} ms wall, "
-        f"device busy {busy_ms:.1f} ms = {busy_ms / 16:.3f} ms per batch, "
-        f"idle {100 * (1 - busy_ms / (prof_s * 1e3)):.1f}% [{card}]")
+        f"device busy {busy_ms:.1f} ms (union of device intervals) = "
+        f"{busy_ms / 16:.3f} ms per batch, idle "
+        f"{100 * (1 - busy_ms / (prof_s * 1e3)):.1f}% [{card}]")
     for e in on_dev[:8]:
         say(f"      {e.self_device_time_total / 1e3 / 16:8.3f} ms/batch "
             f"{e.count / 16:6.1f} calls/batch  {e.key[:90]}")
@@ -471,6 +521,306 @@ def main() -> None:
                 raise AssertionError(f"{what}: kernel {k} never launched")
         say(f"    launches in {what}: {n_run}")
 
+    # ---- 9. K4 against the plain rotation, bit for bit ----------------------
+    import dataclasses
+
+    from rambl_tpu_torch.parallel import ring as tring
+    from rambl_tpu_torch.parallel import ring_dma
+    from rambl_tpu_torch.parallel.mesh import data_mesh, put_sharded
+    from rambl_tpu_torch.parallel.steps import make_align_bin_step
+
+    def ring_arrays(seed, n, words=1_000_003, rows=77_777):
+        """Per-rank (flat int32 of an odd word count, (rows, 3) int32)."""
+        g = np.random.default_rng(seed)
+        a = g.integers(-2**31, 2**31 - 1, (n, words),
+                       dtype=np.int64).astype(np.int32)
+        b = g.integers(-1, 1 << 20, (n, rows, 3)).astype(np.int32)
+        return a, b, [tuple(on_card(a[r], b[r])) for r in range(n)]
+
+    def rotate(mesh, state, impl):
+        mesh.fork()
+        got = ring_dma.ring_rotate(state, mesh, impl)
+        mesh.join()
+        return got
+
+    err["ring"] = 0
+    for n in (2, 4):
+        mesh = data_mesh(devices=[dev] * n)
+        a, b, state = ring_arrays(17 + n, n)
+        want = rotate(mesh, state, "ppermute")
+        for r in range(n):
+            np.testing.assert_array_equal(np.roll(a, 1, 0)[r],
+                                          want[r][0].cpu().numpy())
+            np.testing.assert_array_equal(np.roll(b, 1, 0)[r],
+                                          want[r][1].cpu().numpy())
+        for impl in ("dma", "dma_barrier"):
+            got = rotate(mesh, state, impl)
+            torch.cuda.synchronize()
+            ring_dma.check_ring(mesh)
+            for g, w in zip(got, want):
+                err["ring"] = max(err["ring"], require_equal(
+                    f"K4 {impl} at {n} ranks", g, w))
+    n_rep, T = 4, 64
+    mesh = data_mesh(devices=[dev] * n_rep)
+    a, b, _ = ring_arrays(23, n_rep)
+    w_a = torch.arange(1, a.shape[1] + 1, dtype=torch.int64, device=dev)
+    w_b = torch.arange(1, b[0].size + 1, dtype=torch.int64, device=dev)
+    want_sums = np.stack([(a.astype(np.int64) * np.arange(1, a.shape[1] + 1))
+                          .sum(1),
+                          (b.reshape(n_rep, -1).astype(np.int64)
+                           * np.arange(1, b[0].size + 1)).sum(1)], 1)
+    for impl in ("dma", "dma_barrier"):
+        state = [tuple(on_card(a[r], b[r])) for r in range(n_rep)]
+        spare = [tuple(torch.empty_like(x) for x in st_) for st_ in state]
+        sums = []
+        mesh.fork()
+        for _ in range(T):
+            out = ring_dma.ring_rotate(state, mesh, impl, out=spare)
+            spare, state = state, out
+            for r in range(n_rep):
+                with mesh.rank(r):        # a reader of the shard, as a probe
+                    sums.append(torch.stack([
+                        (state[r][0].long() * w_a).sum(),
+                        (state[r][1].reshape(-1).long() * w_b).sum()]))
+        mesh.join()
+        torch.cuda.synchronize()
+        ring_dma.check_ring(mesh)
+        got = torch.stack(sums).cpu().numpy().reshape(T, n_rep, 2)
+        for t in range(T):
+            np.testing.assert_array_equal(np.roll(want_sums, t + 1, 0), got[t],
+                                          err_msg=f"K4 {impl} rotation {t}")
+        for r in range(n_rep):
+            np.testing.assert_array_equal(np.roll(a, T, 0)[r],
+                                          state[r][0].cpu().numpy())
+    del state, spare, want, got, out
+    say(f"[9 ring kernel] K4 dma and dma_barrier at 2 and 4 virtual ranks on "
+        f"{a.shape[1]} + {b[0].size} words a rank equal the plain rotation "
+        f"bit for bit; {T} consecutive rotations on persistent buffers at "
+        f"{n_rep} ranks: every rank's shard equals np.roll of the host copy "
+        f"after every rotation")
+
+    # ---- 10. the mesh stream: config 4 on 4 virtual ranks ------------------
+    n_ranks = 4
+    cfg4 = dataclasses.replace(PRESETS["cohort"], ring_impl="dma")
+    B4 = cfg4.batch_size
+    t0 = time.perf_counter()
+    ds4 = simulate_dataset(n_species=COHORT_REFS // 5, refs_per_species=5,
+                           n_reads=N_READS, seed=13, leaf_per_ref=True,
+                           n_present=500)
+    ds4_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index4 = build_seed_index(ds4.ref_seqs, ds4.ref_lens, k=cfg4.k)
+    index4_s = time.perf_counter() - t0
+    tables4 = build_taxonomy_tables(ds4.tax_parent, ds4.tax_depth,
+                                    ds4.ref_taxon)
+    col4 = build_col_maps(ds4.ref_seqs, ds4.ref_lens, ds4.ref_taxon)
+    mesh4 = data_mesh(devices=[dev] * n_ranks)
+    # the shards are set-up, built once and passed in (a cohort's samples
+    # share them): the stream's wall below holds none of this
+    t0 = time.perf_counter()
+    host_shards = tring.build_ring_shards(index4, n_ranks)
+    shard_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards4 = tring.RingShards(host_shards, mesh4)
+    torch.cuda.synchronize()
+    shard_up_s = time.perf_counter() - t0
+    del host_shards
+    shard_bytes = sum(x.numel() * x.element_size()
+                      for st_ in shards4.state for x in st_)
+    say(f"[10 mesh] config 4 ('cohort', ring_impl=dma, batch {B4}): "
+        f"{ds4.ref_seqs.shape[0]} refs x {ds4.ref_seqs.shape[1]} cols, "
+        f"{tables4.n_nodes} taxonomy nodes, index {index4.n_entries} entries "
+        f"in 2^{index4.n_bits} buckets (dataset {ds4_s:.1f} s, index "
+        f"{index4_s:.1f} s on the host); mesh {mesh4} = {n_ranks} virtual "
+        f"ranks on cuda:0; {shard_bytes} B of shards built on the host in "
+        f"{shard_build_s:.2f} s and uploaded in {shard_up_s:.2f} s")
+
+    def run_mesh(n_reads, cfg_=cfg4, d=ds4, idx=index4, tab=tables4,
+                 cm=col4, **kw):
+        return stream_align(d.reads[:n_reads], d.read_lens[:n_reads], idx,
+                            d.ref_seqs, d.ref_lens, tab, cfg_, col_maps=cm,
+                            **kw)
+
+    run_mesh(2 * B4, mesh=mesh4, ring_shards=shards4)    # warm-up: 2 batches
+    torch.cuda.synchronize()
+    sw_cuda.reset_launches()
+    ring_dma.reset_launches()
+    t0 = time.perf_counter()
+    mm, mcounts, mspan, mrc = run_mesh(N_READS, mesh=mesh4,
+                                       ring_shards=shards4)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    mesh_launches = {**sw_cuda.LAUNCHES, **ring_dma.LAUNCHES}
+    for k, v in mesh_launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched in the mesh "
+                                 "stream")
+    t0 = time.perf_counter()
+    one, ocounts, ospan, orc = run_mesh(N_READS, device=dev)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    for k in ("bins", "score", "ref", "strand"):
+        for r in range(n_ranks):
+            if not torch.equal(one[k], mm[k][r]):
+                raise AssertionError(f"mesh {k} (rank {r}) differs from the "
+                                     "single-device stream")
+    nb4, bl4, L4 = mm["query"][0].shape
+    for k in ("query", "ref_col"):
+        flat = torch.cat(mm[k], dim=1).reshape(nb4 * B4, L4)[:N_READS]
+        if not torch.equal(one[k], flat):
+            raise AssertionError(f"mesh retention {k} differs from the "
+                                 "single-device stream")
+    bins_sh = torch.cat(mm["bins_sh"], dim=1).reshape(-1)[:N_READS]
+    if not torch.equal(bins_sh, one["bins"]):
+        raise AssertionError("mesh bins retention differs")
+    for r in range(n_ranks):
+        if not torch.equal(orc, mrc[r]):
+            raise AssertionError("mesh read_count differs")
+    slot_mode = tables4.n_nodes > cfg4.pileup_slot_nodes
+    if slot_mode and not (mcounts is mspan is ocounts is ospan is None):
+        raise AssertionError("slot mode returns no dense accumulators")
+    orc4 = align_reads(ds4.reads[:n_or], ds4.read_lens[:n_or], ds4.ref_seqs,
+                       index4, cfg4)
+    R4, RL4 = ds4.ref_seqs.shape
+    proj4 = np.where(orc4.ref_col >= 0,
+                     col4[np.clip(orc4.ref, 0, R4 - 1)[:, None],
+                          np.clip(orc4.ref_col, 0, RL4 - 1)], -1)
+    for k, want in (("score", orc4.score), ("ref", orc4.ref),
+                    ("strand", orc4.strand)):
+        np.testing.assert_array_equal(
+            want.astype(np.int64),
+            mm[k][0][:n_or].cpu().numpy().astype(np.int64),
+            err_msg=f"mesh oracle {k}")
+    np.testing.assert_array_equal(
+        proj4, torch.cat(mm["ref_col"], dim=1).reshape(-1, L4)[:n_or]
+        .cpu().numpy().astype(np.int64), err_msg="mesh oracle ref_col")
+    aligned4 = float((one["ref"] >= 0).float().mean())
+    binned4 = float((one["bins"] >= 0).float().mean())
+    del one, ocounts, ospan, orc
+    say(f"[10 mesh] {N_READS} reads in {nb4} batches of {B4} ({bl4} a rank): "
+        f"launches {mesh_launches}; {aligned4 * 100:.2f}% aligned, "
+        f"{binned4 * 100:.2f}% binned; "
+        f"{'slot mode (read_count merged only)' if slot_mode else 'dense'}; "
+        f"retention in stream order, small vectors and read_count "
+        f"equal the single-device stream bit for bit; first {n_or} reads "
+        f"equal the NumPy oracle")
+
+    # config 2's dense pileup through the same mesh, positions sharded; this
+    # stream builds its own shards
+    n_d = 4 * B
+    cfg_d = dataclasses.replace(cfg, shard_index=True, ring_impl="dma",
+                                shard_positions=True)
+    dm, dcounts, dspan, drc = run_mesh(n_d, cfg_d, ds, index, tables,
+                                       col_maps, mesh=mesh4)
+    d1, d1counts, d1span, d1rc = run_mesh(n_d, cfg, ds, index, tables,
+                                          col_maps, device=dev)
+    torch.cuda.synchronize()
+    if not (torch.equal(d1counts, torch.cat(dcounts, dim=1))
+            and all(torch.equal(d1span, x) for x in dspan)
+            and all(torch.equal(d1rc, x) for x in drc)):
+        raise AssertionError("config 2 mesh pileup differs from the "
+                             "single-device stream")
+    nbd, _, Ld = dm["query"][0].shape
+    for k in ("query", "ref_col"):
+        if not torch.equal(d1[k], torch.cat(dm[k], dim=1).reshape(
+                nbd * B, Ld)[:n_d]):
+            raise AssertionError(f"config 2 mesh retention {k} differs")
+    ring_dma.check_ring(mesh4)
+    del dm, dcounts, dspan, drc, d1, d1counts, d1span, d1rc
+    say(f"[10 mesh] config 2, {n_d} reads, shard_positions on the same mesh: "
+        f"counts (column slices), span_diff, read_count and retention equal "
+        f"the single-device dense stream bit for bit")
+
+    # ---- 11. mesh timings ----------------------------------------------------
+    card = card_line(dev)
+    # what each stream uploads before its first batch, timed apart
+    t0 = time.perf_counter()
+    st4 = StreamTables.from_host(ds4.ref_seqs, tables4, col4, dev)
+    torch.cuda.synchronize()
+    tables_up_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table4 = SeedTable.from_index(index4, dev)
+    torch.cuda.synchronize()
+    table_up_s = time.perf_counter() - t0
+    del table4
+    # the device's busy share of the stream alone (shards passed in), and
+    # where its device time goes
+    n_prof4 = 8 * B4
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof4:
+        t0 = time.perf_counter()
+        run_mesh(n_prof4, mesh=mesh4, ring_shards=shards4)
+        torch.cuda.synchronize()
+        prof4_s = time.perf_counter() - t0
+    busy4_ms = busy_ms_of(prof4)
+    on_dev4 = device_ops(prof4)
+    step4 = make_align_bin_step(mesh4, cfg4, index4.n_bits, ring=True)
+    rb4 = put_sharded(ds4.reads[:B4], mesh4)
+    lb4 = put_sharded(ds4.read_lens[:B4], mesh4)
+    batch_trials = trial_times(step4, rb4, lb4, shards4, [st4] * n_ranks,
+                               device=dev, trials=3, iters=5)
+    mesh_batch_ms, batch_spread = median_spread(batch_trials)
+
+    def rot(impl):
+        mesh4.fork()
+        shards4.rotate(impl)
+        mesh4.join()
+
+    def copies():
+        for r in range(n_ranks):
+            for x, o in zip(shards4.state[r], shards4.spare[(r + 1) % n_ranks]):
+                o.copy_(x)
+
+    for impl in ("dma", "dma_barrier"):       # at the path's shapes
+        before = [tuple(x.clone() for x in st_) for st_ in shards4.state]
+        rot(impl)
+        want4 = rotate(mesh4, before, "ppermute")
+        torch.cuda.synchronize()
+        ring_dma.check_ring(mesh4)
+        for g, w in zip(shards4.state, want4):
+            err["ring"] = max(err["ring"], require_equal(
+                f"K4 {impl} on the path's shards", g, w))
+        del before, want4
+    k4 = {}
+    for impl in ("ppermute", "dma", "dma_barrier", "copy_"):
+        fn, args = (copies, ()) if impl == "copy_" else (rot, (impl,))
+        k4[impl] = cuda_time(fn, *args, iters=20)
+    torch.cuda.synchronize()
+    ring_dma.check_ring(mesh4)
+    nb_prof4 = n_prof4 // B4
+    say(f"[11 mesh timings] card: {card}")
+    say(f"    mesh stream: {mesh_s:.3f} s wall for {N_READS} reads = "
+        f"{N_READS / mesh_s:.0f} reads/s on {n_ranks} virtual ranks of one "
+        f"card (host clock; shards passed in, built and uploaded apart; H2D "
+        f"of the reads and the ref tables included, the tables' upload "
+        f"{tables_up_s:.3f} s alone); the single-device stream of the same "
+        f"reads and index {single_s:.3f} s = {N_READS / single_s:.0f} "
+        f"reads/s (its seed table's upload, {table_up_s:.3f} s alone, "
+        f"included) [{card}]")
+    say(f"    one batch of {B4} (4 ranks: ring seeding, align, bin; CUDA "
+        f"events over 5 calls, host gaps included): {mesh_batch_ms:.3f} ms, "
+        f"median of 3 trials ("
+        + ", ".join(f"{t:.3f}" for t in batch_trials)
+        + f" ms, spread {batch_spread:.1f}%) [{card}]")
+    say(f"    profiled mesh stream of {n_prof4} reads (shards passed in): "
+        f"{prof4_s * 1e3:.1f} ms wall, device busy {busy4_ms:.1f} ms (union "
+        f"of device intervals) = busy {100 * busy4_ms / (prof4_s * 1e3):.1f}%"
+        f" [{card}]")
+    say("      device time by kernel, summed over the rank streams (which "
+        "overlap, so the sum may exceed the wall):")
+    for e in on_dev4[:10]:
+        say(f"      {e.self_device_time_total / 1e3 / nb_prof4:8.3f} ms/batch "
+            f"{e.count / nb_prof4:7.1f} calls/batch  {e.key[:90]}")
+    say(f"    K4 one rotation of the path's shards ({n_ranks} ranks x 2 "
+        f"arrays, {shard_bytes} B in all; copies within one card's HBM, not "
+        f"NVLink; dma and dma_barrier equal the plain rotation bit for bit "
+        f"on them): dma {k4['dma']:.3f} ms, dma_barrier "
+        f"{k4['dma_barrier']:.3f} ms; plain rotation (ppermute) "
+        f"{k4['ppermute']:.3f} ms; the {2 * n_ranks} bare copy_ calls "
+        f"{k4['copy_']:.3f} ms; bound "
+        f"{2 * shard_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes) [{card}]")
+    del shards4, rb4, lb4, st4
+
     peak = int32_ops_per_s(dev)
     n_path = PAIRS
     # K3 reads one direction byte a step of each pair's walk, and no others
@@ -486,6 +836,8 @@ def main() -> None:
         "S1": bound(OPS_PER_CELL * P1 * L1 * W1, P1 * (L1 + W1) + 12 * P1,
                     peak),
         "S2": bound(OPS_PER_CELL * P2 * L2 * W2, 4 * P2 * (L2 + W2 + 1), peak),
+        # every shard word read once and written once; no arithmetic
+        "K4": bound(0, 2 * shard_bytes, peak),
     }
     best_v = max((k for k in sweep["results"] if k != "prod-K1"),
                  key=lambda k: sweep["results"][k]["gcups"])
@@ -518,6 +870,11 @@ def main() -> None:
         row("sw_pretransposed (S2)", src_v, "scripts/ablate_prep.py:47",
             abl_n["pretransposed"], err["pretransposed"],
             abl["kernel_only"]["ms"], s2_plain_ms, "S2"),
+        {**row("ring_copy (K4, one rotation of 4 virtual ranks' shards)",
+               "rambl_tpu_torch/csrc/ring.cu",
+               "rambl_tpu/parallel/ring_dma.py:63", mesh_launches["ring"],
+               err["ring"], k4["dma"], k4["ppermute"], "K4"),
+         "library_ms": k4["copy_"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

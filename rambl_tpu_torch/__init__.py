@@ -18,7 +18,11 @@ Layout mirrors `rambl_tpu`:
 - `ops.seed`: k-mer hashing, CSR probe, candidate voting, window gather;
 - `pipeline.align` / `binning` / `pileup`: the per-batch align step, LCA
   binning and node-space pileup accumulators;
-- `pipeline.assemble.stream_align`: the batch stream over a whole read set;
+- `pipeline.assemble.stream_align`: the batch stream over a whole read set,
+  on one device or data-parallel over a `parallel.mesh.DataMesh`;
+- `parallel.ring` / `ring_dma` / `steps`: the ring-sharded seed index, its
+  rotation K4 (`csrc/ring.cu`) with the plain `copy_` version, and the mesh
+  stream's steps;
 - `bench`, `scripts.bench_sw_variants`, `scripts.ablate_prep`: the bench
   entry points.
 
@@ -27,4 +31,4 @@ Entry points run on the first CUDA card unless the caller passes a device
 CPU on its own (`device.require_cuda`).
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

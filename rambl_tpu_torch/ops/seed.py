@@ -73,17 +73,28 @@ def query_kmers(reads: torch.Tensor, read_lens: torch.Tensor,
 
 
 def probe(keys: torch.Tensor, valid: torch.Tensor, bucket: torch.Tensor,
-          table: SeedTable, cfg: PipelineConfig) -> torch.Tensor:
+          table: SeedTable, cfg: PipelineConfig,
+          bucket_lo: int = 0) -> torch.Tensor:
     """Scan the first `bucket_cap` entries of each query's bucket.
+
+    `table` may be a bucket-range shard (`parallel.ring`): its bucket_start
+    is the CSR slice of buckets [bucket_lo, bucket_lo + n_local] with
+    ABSOLUTE offsets, its entry columns the matching slice (local entry
+    index = offset - bucket_start[0]); buckets outside the range give no
+    hits. The whole table is the shard with bucket_lo = 0.
 
     Returns ckey (B, Q, cap) int32 candidate vote keys
     ref * n_diag_bins + diagonal bin, BIGK where the slot is no hit."""
     pos = seed_positions(cfg, keys.device)
     cap = cfg.bucket_cap
     bs = table.bucket_start
-    b = bucket.long()
-    start = bs[b]                                          # (B, Q)
-    count = bs[b + 1] - start
+    n_local = bs.shape[0] - 1
+    local_b = bucket - bucket_lo                           # (B, Q)
+    in_range = (local_b >= 0) & (local_b < n_local)
+    lb = torch.clamp(local_b, 0, n_local - 1).long()
+    base = bs[0]
+    start = bs[lb] - base                                  # (B, Q)
+    count = bs[lb + 1] - base - start
     slot = torch.arange(cap, dtype=torch.int32, device=keys.device)
     in_bucket = slot < count[..., None]                    # (B, Q, cap)
     n_entries = table.entry_key.shape[0]
@@ -94,7 +105,8 @@ def probe(keys: torch.Tensor, valid: torch.Tensor, bucket: torch.Tensor,
     ekey = table.entry_key[eidx]
     eref = table.entry_ref[eidx]
     epos = table.entry_pos[eidx]
-    hit = in_bucket & (ekey == keys[..., None]) & valid[..., None]
+    hit = (in_range[..., None] & in_bucket & (ekey == keys[..., None])
+           & valid[..., None])
     diag = epos - pos[None, :, None]
     dbin = torch.div(diag + cfg.read_len_max, cfg.diag_bin,
                      rounding_mode="floor")

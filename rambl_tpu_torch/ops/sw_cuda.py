@@ -13,8 +13,8 @@ back. On CPU tensors it runs the plain PyTorch twin from `ops.sw`, which is
 what the CPU tests exercise. `LAUNCHES` counts kernel launches, one per
 launch and nowhere else, so a run can show that it went through the kernels.
 
-The library is built from every source in `csrc/` (these kernels and those
-of `ops.sw_variants`) with nvcc for sm_90a at first use into `_build/`
+The library is built from every source in `csrc/` (these kernels, those
+of `ops.sw_variants` and K4 of `parallel.ring_dma`) with nvcc for sm_90a at first use into `_build/`
 (ignored by git) and rebuilt when the sources or flags change. The C entry
 points take plain pointers and the stream, loaded with ctypes.
 
@@ -112,15 +112,22 @@ def load_library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
-            P, I = ctypes.c_void_p, ctypes.c_int
+            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.rambl_sw_score.argtypes = [P] * 5 + [I] * 9 + [P]
             lib.rambl_sw_align.argtypes = [P] * 6 + [I] * 9 + [P]
             lib.rambl_sw_traceback.argtypes = [P] * 4 + [I] * 4 + [P]
             lib.rambl_sw_variant_score.argtypes = [P] * 5 + [I] * 11 + [P]
             lib.rambl_sw_pretransposed.argtypes = [P] * 3 + [I] * 8 + [P]
+            # K4 (csrc/ring.cu, wrapped by parallel.ring_dma)
+            lib.rambl_ring_copy.argtypes = [P, P, LL, I, I, P, P, P]
+            lib.rambl_ring_wait.argtypes = [P, I, I, LL, P, P]
+            lib.rambl_ring_barrier.argtypes = [P, P, P, I, LL, P, P]
+            lib.rambl_ring_enable_peer.argtypes = [I, I]
             for fn in (lib.rambl_sw_score, lib.rambl_sw_align,
                        lib.rambl_sw_traceback, lib.rambl_sw_variant_score,
-                       lib.rambl_sw_pretransposed):
+                       lib.rambl_sw_pretransposed, lib.rambl_ring_copy,
+                       lib.rambl_ring_wait, lib.rambl_ring_barrier,
+                       lib.rambl_ring_enable_peer):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -1,11 +1,12 @@
 """The read stream of the assembly driver: align, bin and pile up every read.
 
-Port of the single-device stream of `rambl_tpu/pipeline/assemble.py`
-(`_align_bin_batch`, `_pileup_accum`, `_read_count_accum`, `_pad_batches`
-and `_stream_align`), bit-identical to it. Reads go through the align + bin
-step in fixed-size batches (the last one padded with empty reads, which bin
-to -1); per-read outputs are kept in preallocated device buffers and the
-node-space pileup accumulators are summed on the device.
+Port of the stream of `rambl_tpu/pipeline/assemble.py` (`_align_bin_batch`,
+`_pileup_accum`, `_read_count_accum`, `_pad_batches`, `_stream_align` and,
+over a mesh of ranks, `_stream_align_mesh`), bit-identical to it. Reads go
+through the align + bin step in fixed-size batches (the last one padded
+with empty reads, which bin to -1); per-read outputs are kept in
+preallocated device buffers and the node-space pileup accumulators are
+summed on the device.
 
 Clustering, consensus, the refinement rounds and polish are not ported yet.
 """
@@ -56,7 +57,13 @@ def _align_bin_batch(reads, lens, table: SeedTable, st: StreamTables,
                      cfg: PipelineConfig):
     """Align + bin one batch, with ref columns projected to leaf-anchor
     coordinates -> (query, proj, bins, score, ref, strand)."""
-    res = align_batch(reads, lens, table, st.ref_seqs, cfg)
+    return _bin_project(align_batch(reads, lens, table, st.ref_seqs, cfg),
+                        st, cfg)
+
+
+def _bin_project(res, st: StreamTables, cfg: PipelineConfig):
+    """Bin aligned records and project their ref columns to leaf-anchor
+    coordinates -> (query, proj, bins, score, ref, strand)."""
     bins = bin_batch(res, st.ref_taxon, st.anc_path, st.depth, cfg)
     R, RL = st.ref_seqs.shape
     refc = torch.clamp(res.ref, 0, R - 1).long()
@@ -101,7 +108,7 @@ def _pad_batches(reads: np.ndarray, lens: np.ndarray, batch: int):
 
 def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
                  cfg: PipelineConfig, mesh=None, col_maps=None, *,
-                 device=None):
+                 device=None, ring_shards=None):
     """Stream host reads through the align + bin step on `device` (the
     first CUDA card when None; pass "cpu" for the plain PyTorch path).
 
@@ -119,13 +126,20 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
 
     Host batches are copied from pinned memory with non_blocking=True, one
     batch ahead of the batch being aligned.
+
+    With `mesh` (a `parallel.mesh.DataMesh`; `device` is then unused) the
+    stream runs data-parallel, see `_stream_align_mesh`; `ring_shards` is
+    only for that case.
     """
     if cfg.sw_rows and int(np.max(lens, initial=0)) > cfg.sw_rows:
         raise UserError(
             f"cfg.sw_rows={cfg.sw_rows} < longest read {int(np.max(lens))}: "
             "the truncated SW sweep is only exact when every real read fits")
     if mesh is not None:
-        raise NotImplementedError("multi-device streaming is not ported yet")
+        return _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens,
+                                  tables, cfg, mesh, col_maps, ring_shards)
+    if ring_shards is not None:
+        raise ValueError("ring_shards needs a mesh")
     device = resolve(device)
     table = SeedTable.from_index(index, device)
     if col_maps is None:
@@ -187,4 +201,127 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
         for k, v in zip(RETAINED, outs):
             bufs[k][s0:s0 + cfg.batch_size] = v
     merged = {k: (v if BT == B else v[:B]) for k, v in bufs.items()}
+    return merged, counts, span_diff, read_count
+
+
+def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
+                       cfg: PipelineConfig, mesh, col_maps=None,
+                       ring_shards=None):
+    """Data-parallel `stream_align` over the ranks of `mesh` (the
+    reference's `_stream_align_mesh`, bitwise).
+
+    Each batch's rows split evenly over the ranks. The seed table is
+    replicated, or with cfg.shard_index split into bucket ranges that rotate
+    around the ring (`parallel.ring`, transport cfg.ring_impl). Per-read
+    query / ref_col / bins are retained where they were computed, rank d
+    holding rows [d*bs/n, (d+1)*bs/n) of every batch (`parallel.steps`);
+    the node-space pileup is merged once after the stream (psum, or
+    psum_scatter over columns with cfg.shard_positions).
+
+    `ring_shards` (with cfg.shard_index): a `parallel.ring.RingShards` of
+    `index` on this mesh, built once with `build_ring_shards`, so that
+    several samples stream against one sharded index without building and
+    uploading it again; the ring leaves every shard where it found it.
+
+    Returns (merged, counts, span_diff, read_count), every tensor as a
+    per-rank list: merged["bins", "score", "ref", "strand"] (B,) replicated;
+    merged["query"], merged["ref_col"] (nb, bs/n, L) and merged["bins_sh"]
+    (nb, bs/n) each rank's retention; counts and span_diff replicated, or
+    with shard_positions counts as each rank's column slice and span_diff
+    replicated and trimmed to ref_len + 1; both None in slot mode
+    (n_nodes > cfg.pileup_slot_nodes), where only read_count is merged.
+    """
+    from rambl_tpu_torch.parallel.mesh import put_replicated, put_sharded
+    from rambl_tpu_torch.parallel.ring import RingShards, build_ring_shards
+    from rambl_tpu_torch.parallel.ring_dma import check_ring
+    from rambl_tpu_torch.parallel.steps import (
+        make_align_bin_step,
+        make_pileup_merge_step,
+        make_read_count_step,
+        make_retain_step,
+    )
+
+    n = mesh.size
+    bs = cfg.batch_size
+    if bs % n:
+        raise UserError(f"batch_size {bs} must divide the {n}-rank mesh")
+    if ring_shards is not None:
+        if not cfg.shard_index:
+            raise ValueError("ring_shards needs cfg.shard_index")
+        if (ring_shards.mesh is not mesh
+                or ring_shards.n_local != -(-index.n_buckets // n)):
+            raise ValueError("ring_shards are not this index's shards on "
+                             "this mesh")
+        table = ring_shards
+    elif cfg.shard_index:
+        table = RingShards(build_ring_shards(index, n), mesh)
+    else:
+        # one upload a card: virtual ranks of a card share its copy
+        per_dev = {d: SeedTable.from_index(index, d)
+                   for d in dict.fromkeys(mesh.devices)}
+        table = [per_dev[d] for d in mesh.devices]
+    if col_maps is None:
+        col_maps = build_col_maps(np.asarray(ref_seqs), np.asarray(ref_lens),
+                                  np.asarray(tables.ref_taxon))
+    per_dev = {d: StreamTables.from_host(ref_seqs, tables, col_maps, d)
+               for d in dict.fromkeys(mesh.devices)}
+    st = [per_dev[d] for d in mesh.devices]
+    n_nodes = tables.n_nodes
+    ref_len = ref_seqs.shape[1]
+
+    padded, plens, nb, B = _pad_batches(np.asarray(reads, np.int8),
+                                        np.asarray(lens, np.int32), bs)
+    L = padded.shape[1]
+    host_reads = torch.from_numpy(padded)
+    host_lens = torch.from_numpy(plens)
+    if mesh.on_card:
+        host_reads = host_reads.pin_memory()
+        host_lens = host_lens.pin_memory()
+
+    def _put(i):
+        sl = slice(i * bs, (i + 1) * bs)
+        return put_sharded(host_reads[sl], mesh), put_sharded(host_lens[sl],
+                                                              mesh)
+
+    compact = ref_len <= 32767
+    bl = bs // n
+    qbuf = [torch.zeros((nb, bl, L), dtype=torch.int8, device=d)
+            for d in mesh.devices]
+    rbuf = [torch.zeros((nb, bl, L),
+                        dtype=torch.int16 if compact else torch.int32,
+                        device=d) for d in mesh.devices]
+    bbuf = [torch.zeros((nb, bl), dtype=torch.int32, device=d)
+            for d in mesh.devices]
+    step = make_align_bin_step(mesh, cfg, index.n_bits, ring=cfg.shard_index)
+    fill = make_retain_step(mesh)
+    small = {k: [] for k in RETAINED[2:]}       # bins, score, ref, strand
+    nxt = _put(0) if nb else None
+    for i in range(nb):
+        cur, nxt = nxt, (_put(i + 1) if i + 1 < nb else None)
+        outs = step(cur[0], cur[1], table, st)
+        fill(qbuf, rbuf, bbuf, *([o[j] for o in outs] for j in range(3)), i)
+        for j, k in enumerate(RETAINED[2:], start=2):
+            small[k] += [o[j] for o in outs]
+
+    if n_nodes <= cfg.pileup_slot_nodes:
+        pstep = make_pileup_merge_step(mesh, n_nodes, ref_len,
+                                       shard_positions=cfg.shard_positions)
+        counts, span_diff, read_count = pstep(qbuf, rbuf, bbuf)
+        if cfg.shard_positions:
+            # width contract: replicate the padded span rows, keep ref_len+1
+            full = torch.cat([s.to(mesh.devices[0]) for s in span_diff], 1)
+            span_diff = put_replicated(full[:, :ref_len + 1].contiguous(),
+                                       mesh)
+    else:
+        counts = span_diff = None
+        read_count = make_read_count_step(mesh, n_nodes)(bbuf)
+    if cfg.shard_index and cfg.ring_impl == "dma_barrier":
+        check_ring(mesh)
+
+    dev0 = mesh.devices[0]
+    merged = {k: put_replicated(torch.cat([t.to(dev0) for t in v])[:B], mesh)
+              for k, v in small.items()}
+    merged["query"] = qbuf
+    merged["ref_col"] = rbuf
+    merged["bins_sh"] = bbuf
     return merged, counts, span_diff, read_count

@@ -23,6 +23,7 @@ from rambl_tpu.pipeline import pileup as jpileup
 from rambl_tpu.pipeline.assemble import _stream_align
 from rambl_tpu_torch.config import PipelineConfig as TConfig
 from rambl_tpu_torch.ops.seed import SeedTable as TSeedTable
+from rambl_tpu_torch.parallel.mesh import data_mesh
 from rambl_tpu_torch.pipeline import align as talign
 from rambl_tpu_torch.pipeline import assemble as tassemble
 from rambl_tpu_torch.pipeline import binning as tbinning
@@ -184,8 +185,10 @@ def test_stream_align_guards(small_ds, small_index, small_tax):
         tassemble.stream_align(ds.reads, ds.read_lens, small_index,
                                ds.ref_seqs, ds.ref_lens, small_tax, cfg,
                                device="cpu")
-    with pytest.raises(NotImplementedError):
+    # the mesh stream splits every batch evenly over the ranks
+    with pytest.raises(UserError, match="must divide the 3-rank mesh"):
         tassemble.stream_align(ds.reads, ds.read_lens, small_index,
                                ds.ref_seqs, ds.ref_lens, small_tax,
-                               TConfig(), mesh=object(), device="cpu")
+                               TConfig(batch_size=64), mesh=data_mesh(
+                                   devices=["cpu"] * 3))
 

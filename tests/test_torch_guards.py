@@ -56,6 +56,12 @@ tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
 merged, counts, span, rc = stream_align(ds.reads, ds.read_lens, idx,
     ds.ref_seqs, ds.ref_lens, tax, cfg, device="cpu")
 assert merged["bins"].shape == (40,) and int(rc.sum()) > 0
+import dataclasses, torch
+from rambl_tpu_torch.parallel import mesh, ring, ring_dma, steps
+m2 = stream_align(ds.reads, ds.read_lens, idx, ds.ref_seqs, ds.ref_lens, tax,
+    dataclasses.replace(cfg, shard_index=True),
+    mesh=mesh.data_mesh(devices=["cpu"] * 2))
+assert torch.equal(m2[0]["bins"][1], merged["bins"])
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "rambl_tpu")
             and sys.modules[m] is not None]
@@ -91,7 +97,7 @@ def test_card_tests_skip_here_with_reason():
               "no:cacheprovider", "tests/test_torch_kernels_cuda.py"],
              env_extra={"PYTHONPATH": REPO})
     assert r.returncode == 0, r.stdout[-3000:]
-    assert "20 skipped" in r.stdout and "passed" not in r.stdout
+    assert "30 skipped" in r.stdout and "passed" not in r.stdout
     assert "needs an NVIDIA GPU with CUDA" in r.stdout
 
 
@@ -134,17 +140,18 @@ def test_port_imports_no_rambl_tpu():
 
 
 @pytest.mark.parametrize("entry", ["bench", "bench_sw_variants",
-                                   "ablate_prep", "stream_align"])
+                                   "ablate_prep", "stream_align", "data_mesh"])
 def test_entry_points_need_the_card_by_default(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points would run")
     from rambl_tpu_torch import bench
+    from rambl_tpu_torch.parallel.mesh import data_mesh
     from rambl_tpu_torch.pipeline.assemble import stream_align
     from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
     from rambl_tpu_torch.config import PipelineConfig
 
     run = {"bench": bench.run, "bench_sw_variants": bench_sw_variants.run,
-           "ablate_prep": ablate_prep.run}.get(entry)
+           "ablate_prep": ablate_prep.run, "data_mesh": data_mesh}.get(entry)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if run is not None:
             run()

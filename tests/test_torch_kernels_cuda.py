@@ -1,6 +1,7 @@
-"""The hand-written CUDA SW kernels == their plain PyTorch twin, on the card:
-K1-K3 (`ops.sw_cuda`) and the bench kernels S1 (every variant) and S2
-(`ops.sw_variants`).
+"""The hand-written CUDA kernels == their plain PyTorch versions, on the
+card: K1-K3 (`ops.sw_cuda`), the bench kernels S1 (every variant) and S2
+(`ops.sw_variants`), and K4, the ring rotation (`parallel.ring_dma`), on
+virtual ranks of one card.
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test here skips with a reason
 elsewhere. The file imports no jax, so it also runs on a machine without it:
@@ -21,6 +22,8 @@ from rambl_tpu_torch.oracle.sw import sw_batch, traceback_batch
 from rambl_tpu_torch.ops import sw as tsw
 from rambl_tpu_torch.ops import sw_cuda
 from rambl_tpu_torch.ops import sw_variants as sv
+from rambl_tpu_torch.parallel import ring_dma
+from rambl_tpu_torch.parallel.mesh import data_mesh
 from rambl_tpu_torch.utils.sw_cases import (
     gapped_pairs,
     planted_pairs,
@@ -163,3 +166,138 @@ def test_bench_wrappers_reject_bad_inputs(dev):
         sv.score_pretransposed(qT.to(torch.int8), wT, SC, W)
     with pytest.raises(ValueError, match="int32"):
         sv.score_pretransposed(qT.t().contiguous().t(), wT, SC, W)
+
+
+# ---- K4: the ring rotation on virtual ranks of one card ----------------------
+
+def _ring_state(dev, n, seed, words=100_003, rows=4097):
+    """Per-rank (flat int32 of an odd word count, (rows, 3) int32)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-2**31, 2**31 - 1, (n, words),
+                     dtype=np.int64).astype(np.int32)
+    b = rng.integers(-1, 1 << 20, (n, rows, 3)).astype(np.int32)
+    return a, b, [tuple(_on(dev, a[r], b[r])) for r in range(n)]
+
+
+def _rotate(mesh, state, impl, **kw):
+    mesh.fork()
+    out = ring_dma.ring_rotate(state, mesh, impl, **kw)
+    mesh.join()
+    return out
+
+
+@pytest.mark.parametrize("impl", ["dma", "dma_barrier"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_kernel_matches_plain(dev, n, impl):
+    mesh = data_mesh(devices=[dev] * n)
+    a, b, state = _ring_state(dev, n, seed=n)
+    before = ring_dma.LAUNCHES["ring"]
+    got = _rotate(mesh, state, impl)
+    want = _rotate(mesh, state, "ppermute")
+    torch.cuda.synchronize()
+    ring_dma.check_ring(mesh)
+    assert ring_dma.LAUNCHES["ring"] == before + 2 * n
+    for g, w in zip(got, want):
+        _equal(g, w)
+    np.testing.assert_array_equal(np.roll(a, 1, 0)[0], got[0][0].cpu())
+    np.testing.assert_array_equal(np.roll(b, 1, 0)[n - 1],
+                                  got[n - 1][1].cpu())
+
+
+@pytest.mark.parametrize("impl", ["dma", "dma_barrier"])
+def test_ring_kernel_repeated_rotations(dev, impl):
+    # persistent ping-pong buffers, a reader of every rank's shard between
+    # rotations (as the probe is), 64 rotations: every rank must read the
+    # shard np.roll says, every time
+    n, T = 4, 64
+    mesh = data_mesh(devices=[dev] * n)
+    a, b, state = _ring_state(dev, n, seed=7, words=1_000_003, rows=33_333)
+    spare = [tuple(torch.empty_like(x) for x in s) for s in state]
+    weights = torch.arange(1, a.shape[1] + 1, dtype=torch.int64, device=dev)
+    sums = []
+    mesh.fork()
+    for _ in range(T):
+        out = ring_dma.ring_rotate(state, mesh, impl, out=spare)
+        spare, state = state, out
+        for r in range(n):
+            with mesh.rank(r):
+                sums.append((state[r][0].long() * weights).sum())
+    mesh.join()
+    torch.cuda.synchronize()
+    ring_dma.check_ring(mesh)
+    want = (a.astype(np.int64) * np.arange(1, a.shape[1] + 1)).sum(1)
+    got = torch.stack(sums).cpu().numpy().reshape(T, n)
+    for t in range(T):
+        np.testing.assert_array_equal(np.roll(want, t + 1), got[t])
+    for r in range(n):
+        np.testing.assert_array_equal(np.roll(a, T, 0)[r], state[r][0].cpu())
+        np.testing.assert_array_equal(np.roll(b, T, 0)[r], state[r][1].cpu())
+
+
+@pytest.mark.parametrize("waiter", ["barrier", "wait"])
+def test_ring_kernel_times_out_instead_of_hanging(dev, waiter):
+    # dma_barrier with a neighbour that never signals: the spinning kernel
+    # gives up after its timeout, sets the status word, and check_ring raises
+    mesh = data_mesh(devices=[dev] * 2)
+    _, _, state = _ring_state(dev, 2, seed=3)
+    mesh.fork()
+    if waiter == "barrier":
+        # the first rotation sets the ring's flags up (and synchronizes);
+        # then rank 1's stream is busy far beyond rank 0's barrier timeout
+        ring_dma.ring_rotate(state, mesh, "dma_barrier")
+        with mesh.rank(1):
+            torch.cuda._sleep(2_000_000_000)   # ~1 s at the card's clock
+        ring_dma.ring_rotate(state, mesh, "dma_barrier", timeout_ns=1_000_000)
+    else:
+        # rank 0 waits for an epoch no rank will send
+        ring_dma.ring_rotate(state, mesh, "dma_barrier")
+        ring = mesh.scratch[("ring", 2)]
+        rc = sw_cuda.load_library().rambl_ring_wait(
+            ring.flags[0].data_ptr(), ring.n_arrays, ring.epoch + 1,
+            1_000_000, ring.status.data_ptr(), mesh.streams[0].cuda_stream)
+        assert rc == 0
+    mesh.join()
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="timed out"):
+        ring_dma.check_ring(mesh)
+
+
+def test_ring_kernel_rejects_bad_inputs(dev):
+    mesh = data_mesh(devices=[dev] * 2)
+    _, _, state = _ring_state(dev, 2, seed=4, words=64, rows=8)
+    with pytest.raises(ValueError, match="32-bit words"):
+        ring_dma.ring_permute_dma([(x[0].long(),) for x in state], mesh)
+    with pytest.raises(ValueError, match="32-bit words"):
+        ring_dma.ring_permute_dma([(x[1].t(),) for x in state], mesh)
+    with pytest.raises(ValueError, match="not cuda:0"):
+        ring_dma.ring_permute_dma([(state[0][0].cpu(),), (state[1][0],)],
+                                  mesh)
+
+
+def test_mesh_stream_with_k4_matches_single_device(dev):
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.data.simulate import simulate_dataset
+    from rambl_tpu_torch.index.builder import build_seed_index
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.pipeline.assemble import stream_align
+
+    ds = simulate_dataset(n_species=5, refs_per_species=2, n_reads=700,
+                          seed=1)
+    cfg = PipelineConfig(batch_size=256, sw_rows=ROWS, shard_index=True,
+                         ring_impl="dma", shard_positions=True)
+    index = build_seed_index(ds.ref_seqs, ds.ref_lens, k=cfg.k)
+    tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
+    args = (ds.reads, ds.read_lens, index, ds.ref_seqs, ds.ref_lens, tax, cfg)
+    before = ring_dma.LAUNCHES["ring"]
+    mg, cg, sg, rg = stream_align(*args, mesh=data_mesh(devices=[dev] * 4))
+    torch.cuda.synchronize()
+    assert ring_dma.LAUNCHES["ring"] > before
+    one, c1, s1, r1 = stream_align(*args, device=dev)
+    for k in ("bins", "score", "ref", "strand"):
+        assert torch.equal(one[k], mg[k][0])
+    nb, _, L = mg["query"][0].shape
+    for k in ("query", "ref_col"):
+        flat = torch.cat(mg[k], dim=1).reshape(nb * 256, L)[:700]
+        assert torch.equal(one[k], flat)
+    assert torch.equal(c1, torch.cat(cg, dim=1))
+    assert torch.equal(s1, sg[0]) and torch.equal(r1, rg[0])
