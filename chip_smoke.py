@@ -15,7 +15,10 @@ code is non-zero and no result line is printed:
 2. build: nvcc compiles `rambl_tpu_torch/csrc/*.cu` for sm_90a;
 3. kernels: K1 (score), K2 (direction bits) and K3 (traceback) against their
    plain PyTorch twin on the card, bit for bit, at the align step's shapes,
-   and 256 pairs each against the NumPy oracle;
+   and 256 pairs each against the NumPy oracle; K1 also at ragged batch
+   sizes (1 pair, odd counts, not a multiple of a block's pairs, none) and
+   on adversarial pairs, against the twin, its 16-bit plain version and the
+   oracle;
 4. slice: `stream_align` over BASELINE config 2 (the "small" preset: 20
    species x 5 strains, 1,000,000 reads of 100 bp, batch 8192, sw_rows 104),
    with random data from a seed, every tensor on cuda:0;
@@ -35,13 +38,16 @@ code is non-zero and no result line is printed:
    must have launched;
 9. ring kernel: K4 (`dma` and `dma_barrier`) against the plain rotation
    (`ppermute`) bit for bit at 2 and 4 virtual ranks on an odd word count,
-   and 64 consecutive rotations on persistent buffers, each rank's shard
-   checked against np.roll of the host copy after every rotation;
+   on tuples of 1 to 4 arrays with odd counts and views that are not
+   16-byte aligned (one launch a rank), and 64 consecutive rotations on
+   persistent buffers, each rank's shard checked against np.roll of the
+   host copy after every rotation;
 10. mesh stream: `stream_align(mesh=...)` over BASELINE config 4 (the
    "cohort" preset with ring_impl="dma": batch 16,384, ring-sharded index,
    sw_rows 104) on 4 virtual ranks of cuda:0, 1,000,000 reads against the
    full-Greengenes-scale panel of config 3 (100,000 refs, seed 13, leaf per
-   ref, 500 present); K4 and K1-K3 must launch; every output equals the
+   ref, 500 present); K4 (one launch a rank a rotation: batches x 8 x 4)
+   and K1-K3 must launch; every output equals the
    single-device stream bit for bit and the first 512 reads the NumPy
    oracle; then 4 batches of config 2 through the same mesh with
    shard_positions, against the single-device dense pileup;
@@ -77,9 +83,20 @@ SEED = 7
 COHORT_REFS = 100_000
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64
-# integer operations per DP cell: E, F, diagonal and H take 3 each (the
-# Pallas cost estimate's 12); K2 adds ~6 for its direction code
-OPS_PER_CELL, OPS_PER_CELL_DIRS = 12, 18
+# Integer operations per DP cell of K1's function (K1, S1, S2). On this card
+# one packed 16-bit (DPX) instruction serves two cells: the shipped inner
+# loop (csrc/sw.cu::score_cell) spends 9 on two cells (E, the match mask,
+# the substitution, the diagonal, F, H, H - open, and two for the column
+# key) plus 6 every four rows on the byte-equality masks: 10.5 / 2. Each is
+# rated at INT32_LANES_PER_SM results a clock, the rate of 32-bit integer
+# add, compare, min and max at compute capability 9.0 in the throughput
+# table of NVIDIA's CUDA C++ programming documentation (section "Arithmetic
+# Instructions"); the table gives the DPX forms no rate of their own, so
+# they are taken at that of the min/max they extend.
+# In scalar 32-bit arithmetic it was 12 (E, F, diagonal and H take 3 each:
+# the Pallas cost estimate's count), kept for K2, which adds ~6 for its
+# direction code.
+OPS_PER_CELL, OPS_PER_CELL_32, OPS_PER_CELL_DIRS = 5.25, 12, 18
 OPS_PER_TRACE_STEP = 10
 
 
@@ -196,6 +213,7 @@ def main() -> None:
     from rambl_tpu_torch.ops import sw as tsw
     from rambl_tpu_torch.ops import sw_cuda
     from rambl_tpu_torch.utils.sw_cases import (
+        adversarial_pairs,
         gapped_pairs,
         planted_pairs,
         short_reads,
@@ -223,6 +241,13 @@ def main() -> None:
             say(f"    ptxas: {name}: {regs}; {spill}")
             kernel_regs[name] = int(re.search(r"(\d+) registers",
                                               regs).group(1))
+            if (name.startswith(("sw_score_kernel", "ring_copy_kernel"))
+                    and "0 bytes spill stores, 0 bytes spill loads"
+                    not in (spill or "")):
+                raise AssertionError(f"{name} spills: {spill}")
+    for name in ("sw_score_kernel", "ring_copy_kernel"):
+        if name not in kernel_regs:
+            raise AssertionError(f"no ptxas report for {name}")
 
     # ---- 3. kernels vs twin, bit for bit -----------------------------------
     def on_card(*arrays):
@@ -243,6 +268,41 @@ def main() -> None:
         q_full[:256].contiguous(), w_full[:256].contiguous(), sc)]
     for g, r in zip(got, sw_batch(qn, wn, sc, want_dirs=False)[:3]):
         np.testing.assert_array_equal(r, g)
+    # ragged batches: one pair, odd counts (the last thread's second half
+    # has no pair), not a multiple of a block's pairs
+    ragged = (1, 2, 31, 33, 65, 1037)
+    for n_r in ragged:
+        qr, wr = q_path[:n_r].contiguous(), w_path[:n_r].contiguous()
+        for rows in (0, ROWS):
+            got = sw_cuda.sw_score_cuda(qr, wr, sc, rows=rows)
+            err["score"] = max(err["score"], require_equal(
+                f"K1 n={n_r} rows={rows}", got,
+                tsw.sw_score(qr[:, :rows or L], wr, sc)))
+        for g, r in zip(got, sw_batch(qr[:64, :ROWS].cpu().numpy(),
+                                      wr[:64].cpu().numpy(), sc,
+                                      want_dirs=False)[:3]):
+            np.testing.assert_array_equal(r, g[:64].cpu().numpy())
+    before = sw_cuda.LAUNCHES["score"]
+    empty = sw_cuda.sw_score_cuda(q_path[:0], w_path[:0], sc, rows=ROWS)
+    if sw_cuda.LAUNCHES["score"] != before or any(t.numel() for t in empty):
+        raise AssertionError("K1 on no pairs must launch nothing")
+    # adversarial pairs (utils.sw_cases.ADVERSARIAL), also against the
+    # 16-bit arithmetic in plain PyTorch
+    qa, wa = adversarial_pairs(3, L, W)
+    qa_t, wa_t = on_card(qa, wa)
+    for rows in (0, ROWS):
+        got = sw_cuda.sw_score_cuda(qa_t, wa_t, sc, rows=rows)
+        err["score"] = max(err["score"], require_equal(
+            f"K1 adversarial rows={rows}", got,
+            tsw.sw_score(qa_t[:, :rows or L], wa_t, sc)))
+        require_equal(f"K1 against its 16-bit plain version rows={rows}",
+                      [g.cpu() for g in got], tsw.sw_score_packed16(
+                          torch.from_numpy(qa[:, :rows or L].copy()),
+                          torch.from_numpy(wa), sc))
+        if not ((got[0][:32] == (rows or L)).all()
+                and (got[0][128:] == 0).all()):
+            raise AssertionError("K1: a read equal to its window must score "
+                                 "its length, all mismatches 0")
 
     qg, wg = gapped_pairs(13, 4096, ROWS, W)
     qg = np.concatenate([qg, np.full((4096, L - ROWS), 4, np.int8)], axis=1)
@@ -266,9 +326,10 @@ def main() -> None:
                                   rco.cpu().numpy())
     torch.cuda.synchronize()
     say(f"[3 kernels] K1 on {PAIRS} planted pairs at rows 0 and {ROWS} and "
-        f"on {PAIRS} reads of <= {ROWS} bases at rows {ROWS}, K2+K3 on 4224 "
-        f"gapped/all-N pairs: equal to the twin bit for bit; 256 pairs each "
-        f"equal to the NumPy oracle")
+        f"on {PAIRS} reads of <= {ROWS} bases at rows {ROWS}, on batches of "
+        f"{ragged} and 0 pairs and on 160 adversarial pairs (also against its "
+        f"16-bit plain version), K2+K3 on 4224 gapped/all-N pairs: equal to "
+        f"the twin bit for bit; 256 pairs each equal to the NumPy oracle")
 
     # ---- 4. the slice: stream_align over config 2 --------------------------
     from rambl_tpu_torch.data.simulate import simulate_dataset
@@ -528,6 +589,7 @@ def main() -> None:
     from rambl_tpu_torch.parallel import ring_dma
     from rambl_tpu_torch.parallel.mesh import data_mesh, put_sharded
     from rambl_tpu_torch.parallel.steps import make_align_bin_step
+    from rambl_tpu_torch.utils.ring_cases import TUPLE_CASES, ring_tuples
 
     def ring_arrays(seed, n, words=1_000_003, rows=77_777):
         """Per-rank (flat int32 of an odd word count, (rows, 3) int32)."""
@@ -560,6 +622,25 @@ def main() -> None:
             for g, w in zip(got, want):
                 err["ring"] = max(err["ring"], require_equal(
                     f"K4 {impl} at {n} ranks", g, w))
+    # tuples of 1 to 4 arrays in one launch a rank (utils.ring_cases)
+    mesh = data_mesh(devices=[dev] * 3)
+    for words, misalign in TUPLE_CASES:
+        for impl in ("dma", "dma_barrier"):
+            host, state, out = ring_tuples(dev, 3, len(words), words,
+                                           misalign)
+            before = ring_dma.LAUNCHES["ring"]
+            mesh.fork()
+            got = ring_dma.ring_rotate(state, mesh, impl, out=out)
+            mesh.join()
+            torch.cuda.synchronize()
+            ring_dma.check_ring(mesh)
+            if ring_dma.LAUNCHES["ring"] != before + 3:
+                raise AssertionError("K4 is one launch a rank a rotation")
+            for r in range(3):
+                for a_, x in enumerate(got[r]):
+                    np.testing.assert_array_equal(
+                        host[(r - 1) % 3][a_], x.cpu().numpy(),
+                        err_msg=f"K4 {impl} words={words} rank {r}")
     n_rep, T = 4, 64
     mesh = data_mesh(devices=[dev] * n_rep)
     a, b, _ = ring_arrays(23, n_rep)
@@ -595,7 +676,9 @@ def main() -> None:
     del state, spare, want, got, out
     say(f"[9 ring kernel] K4 dma and dma_barrier at 2 and 4 virtual ranks on "
         f"{a.shape[1]} + {b[0].size} words a rank equal the plain rotation "
-        f"bit for bit; {T} consecutive rotations on persistent buffers at "
+        f"bit for bit; {len(TUPLE_CASES)} tuples of 1 to 4 arrays (odd counts, "
+        f"unaligned views) arrive bit for bit in one launch a rank; {T} "
+        f"consecutive rotations on persistent buffers at "
         f"{n_rep} ranks: every rank's shard equals np.roll of the host copy "
         f"after every rotation")
 
@@ -655,6 +738,11 @@ def main() -> None:
         if v <= 0:
             raise AssertionError(f"kernel {k} never launched in the mesh "
                                  "stream")
+    # one K4 launch a rank a rotation, 2 strands x n_ranks rotations a batch
+    want_k4 = -(-N_READS // B4) * 2 * n_ranks * n_ranks
+    if mesh_launches["ring"] != want_k4:
+        raise AssertionError(f"K4 launched {mesh_launches['ring']} times in "
+                             f"the mesh stream, not {want_k4}")
     t0 = time.perf_counter()
     one, ocounts, ospan, orc = run_mesh(N_READS, device=dev)
     torch.cuda.synchronize()
@@ -698,7 +786,8 @@ def main() -> None:
     binned4 = float((one["bins"] >= 0).float().mean())
     del one, ocounts, ospan, orc
     say(f"[10 mesh] {N_READS} reads in {nb4} batches of {B4} ({bl4} a rank): "
-        f"launches {mesh_launches}; {aligned4 * 100:.2f}% aligned, "
+        f"launches {mesh_launches} (K4: {nb4} batches x {2 * n_ranks} "
+        f"rotations x {n_ranks} ranks, one launch each); {aligned4 * 100:.2f}% aligned, "
         f"{binned4 * 100:.2f}% binned; "
         f"{'slot mode (read_count merged only)' if slot_mode else 'dense'}; "
         f"retention in stream order, small vectors and read_count "
@@ -811,8 +900,9 @@ def main() -> None:
     for e in on_dev4[:10]:
         say(f"      {e.self_device_time_total / 1e3 / nb_prof4:8.3f} ms/batch "
             f"{e.count / nb_prof4:7.1f} calls/batch  {e.key[:90]}")
-    say(f"    K4 one rotation of the path's shards ({n_ranks} ranks x 2 "
-        f"arrays, {shard_bytes} B in all; copies within one card's HBM, not "
+    say(f"    K4 one rotation of the path's shards ({n_ranks} launches, one "
+        f"a rank of 2 arrays, {shard_bytes} B in all; copies within one "
+        f"card's HBM, not "
         f"NVLink; dma and dma_barrier equal the plain rotation bit for bit "
         f"on them): dma {k4['dma']:.3f} ms, dma_barrier "
         f"{k4['dma_barrier']:.3f} ms; plain rotation (ppermute) "
@@ -842,8 +932,12 @@ def main() -> None:
     best_v = max((k for k in sweep["results"] if k != "prod-K1"),
                  key=lambda k: sweep["results"][k]["gcups"])
     say(f"[8 bench path] bounds at {peak / 1e12:.2f} T INT32 op/s and "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (K3: {k3_steps} walk steps over "
-        f"{n_tb} pairs): " + ", ".join(
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {OPS_PER_CELL} operations a cell "
+        f"of K1's function (packed 16-bit: an instruction serves two cells; "
+        f"at the {OPS_PER_CELL_32} of scalar 32-bit arithmetic K1's bound "
+        f"would be "
+        f"{bound(OPS_PER_CELL_32 * n_path * ROWS * W, 0, peak)[0]:.4f} ms) "
+        f"(K3: {k3_steps} walk steps over {n_tb} pairs): " + ", ".join(
             f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in bounds.items())
         + f" [{card}]")
 
@@ -876,6 +970,10 @@ def main() -> None:
                err["ring"], k4["dma"], k4["ppermute"], "K4"),
          "library_ms": k4["copy_"]},
     ]
+    for k in kernels:
+        if k["ms"] < k["bound_ms"]:
+            raise AssertionError(f"{k['name']}: {k['ms']:.4f} ms is below "
+                                 f"its bound of {k['bound_ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,19 +5,69 @@
 //
 //   sw_score_kernel      replaces rambl_tpu/ops/sw_pallas.py::_score_kernel
 //                        (K1): best cell (score, i_end, j_end) of every
-//                        (query, window) pair.
+//                        (query, window) pair. Two pairs a thread in packed
+//                        16-bit DPX arithmetic on staged q and w tiles, a
+//                        pair's rows split over two lanes (K1's bound and
+//                        design, below).
 //   sw_align_kernel      replaces rambl_tpu/ops/sw_pallas.py::_align_kernel
-//                        (K2): the same DP, also writing a 4-bit direction
-//                        code per cell (bits 0-1 the H choice with ties
-//                        zero > diag > E > F, bit 2 E-open, bit 3 F-open;
-//                        open wins ties with extend).
+//                        (K2): the same DP in 32-bit arithmetic, also
+//                        writing a 4-bit direction code per cell (bits 0-1
+//                        the H choice with ties zero > diag > E > F, bit 2
+//                        E-open, bit 3 F-open; open wins ties with extend).
 //   sw_traceback_kernel  replaces rambl_tpu/ops/sw_pallas.py::
 //                        sw_traceback_packed (K3): walks the M/E/F state
 //                        machine back from the end cell into ref_col.
 //
-// Design. One thread per pair. The DP sweeps window columns j = 1..W in the
-// outer loop and query rows i = 1..rows in the inner loop, so the state kept
-// between columns is one column of (H, E): rows + 1 words per thread in
+// K1's bound and design. The best cell is the one with the highest H, then
+// the lowest i, then the lowest j; (0, 0, 0) where no cell is positive.
+// Bound: integer operations (the bytes, int8 in and three int32 out a pair,
+// take microseconds). The design halves the operations a cell and takes
+// every load out of device memory's way:
+//
+// - Two pairs a thread. H, E and F of pairs 2t and 2t + 1 ride in the low
+//   and high half of one 32-bit word, and Hopper's DPX instructions work on
+//   both halves at once: __viaddmax_s16x2(a, b, c) = max(a + b, c) is one
+//   gap recurrence, __vimax3_s16x2_relu(a, b, c) = max(a, b, c, 0) is H.
+// - The sweep is columns outer, rows inner, so the state between columns is
+//   one column of (H - open, E) a pair: rows x 2 words a thread in shared
+//   memory, [row][thread], read and written as one 64-bit word. H is kept
+//   less gap_open + gap_extend because both its uses want it so: E of the
+//   next column and F of the next row open from it, and the diagonal adds
+//   the substitution score plus the same constant back.
+// - Two lanes a pair of pairs. The column state, 420 bytes a pair, is what
+//   limits the warps an SM holds, and one warp's chain of dependent DPX
+//   operations down a column cannot fill its scheduler alone. So the rows
+//   of a pair are cut into two strips, the second a column behind the
+//   first, which hands it its last row by shuffle (kernel comment): twice
+//   the warps on the same shared memory, in half-size units of work. A
+//   block is one warp, 32 pairs, so the barriers around the staging of w
+//   stall no other warp; twelve blocks an SM at 104 rows.
+// - The block's q rows are staged once (coalesced 4-byte loads, laid out
+//   conflict-free for the sweep's reads), its w rows 32 columns at a time
+//   ([column][pair] bytes). Codes that can never match are remapped while
+//   staging (q >= 4 to 4, w >= 4 to 5), so the match test of four rows of
+//   both pairs is two byte-equality masks, and one prmt a cell spreads a
+//   row's two bits over the halves.
+// - The best cell. The 32-bit key H * 32768 - (i * (W + 1) + j) does not fit
+//   a half. Within a column a half tracks max(H << rbits | (2^rbits - i)),
+//   which orders cells by H and then by lowest i, in one multiply-add and
+//   one max a cell; once a column each half's maximum goes, as
+//   (maximum << 16) | (0xFFFF - j), into a running max that is the pair's
+//   best, so of equal (H, i) the lowest j stays. That is the key's order
+//   exactly.
+//
+// 16-bit borders. Row 0's F and column 0's E are neg_inf in the reference.
+// Here they are -16384. That is exact: E(i, 1) = max(H(i, 0) - open,
+// border - extend) and H >= 0, so the border term loses to -open, and every
+// later E and F is >= -open by the same recurrence; the border value never
+// reaches H or the next cell, whatever it is, as long as it is below -open.
+// The lowest value formed is border - extend >= -32768 (the wrapper checks
+// gap_open + gap_extend < 16384), and the highest is the key, below 32768
+// (checked too), so nothing wraps.
+//
+// K2's design. One thread per pair. The DP sweeps window columns j = 1..W in
+// the outer loop and query rows i = 1..rows in the inner loop, so the state
+// kept between columns is one column of (H, E): rows + 1 words per thread in
 // shared memory, laid out [row][thread] so a warp touches 32 banks. F and the
 // H above are running scalars in registers. H <= rows * match < 2^15 and
 // E >= -(gap_open + gap_extend) once j >= 1, so H and E share one 32-bit word
@@ -27,12 +77,13 @@
 // maximum of the packed key H * 32768 - (i * (W + 1) + j) over cells with
 // H > 0, so the sweep order does not change which cell wins.
 //
-// Bound. About 12 integer ops per cell and ~1.1 G cells per 8192-read batch
-// (65,536 pairs x 104 rows x 160 columns): the kernel is bound by integer
-// issue, and by latency at this occupancy (128 threads a block, 4 blocks an
-// SM at rows = 104). Staging a block's q and w tiles in shared memory with a
-// batch-minor layout, 16-bit DPX (__vimax3_s32, __viaddmax_s16x2) and a warp
-// per pair are left for later performance work.
+// K2's and K3's bound. About 18 integer ops and one direction byte written
+// per cell (K2), one direction byte read per step of a walk (K3). Both run
+// on the ~171 gapped pairs of a batch, two blocks in all, so neither fills
+// the card: they are bound by the latency of one thread's serial chain, each
+// thread reading its own q row from device memory (a warp's load touches 32
+// lines). A warp or a block per pair with q staged, and K3 fused into K2's
+// launch, are the next redesign.
 //
 // Direction layout (K2 -> K3): dirs[(i + j - 2), (i - 1), b] as bytes, shape
 // (rows + W - 1, rows, n): the reference's anti-diagonal layout with the
@@ -49,16 +100,255 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;             // K2, K3: a thread a pair
+
+// ---- K1 --------------------------------------------------------------------
+
+constexpr int kScoreThreads = 32;         // a block is one warp
+constexpr int kStripLanes = 16;           // lanes a strip, pairs of pairs a block
+constexpr int kScorePairs = 2 * kStripLanes;
+constexpr int kWChunk = 32;               // window columns staged at a time
+constexpr int kWStride = kScorePairs + 4; // bytes between two staged columns
+static_assert(kWChunk == kScoreThreads, "a lane stages a column of the chunk");
+constexpr int kBorder16 = -16384;         // stands for neg_inf (file comment)
+constexpr uint32_t kMin2 = 0x80008000u;   // INT16_MIN twice: max()'s identity
+
+__host__ __device__ __forceinline__ uint32_t pack2(int x) {
+  return (static_cast<uint32_t>(x) & 0xFFFFu) * 0x10001u;
+}
+
+// The scoring constants, each in both halves of a word.
+struct Scoring2 {
+  uint32_t mismatch_open;  // mismatch + gap_open + gap_extend
+  uint32_t match_delta;    // the same for a match, XOR mismatch_open
+  uint32_t neg_extend;     // -gap_extend
+  uint32_t neg_open;       // -(gap_open + gap_extend)
+  uint32_t key_mul;        // 1 << rbits: the row bits of the column key
+  int rbits;
+};
+
+__host__ __forceinline__ Scoring2 make_scoring2(int match, int mismatch,
+                                                int gap_open, int gap_extend,
+                                                int rbits) {
+  const int open = gap_open + gap_extend;
+  return Scoring2{pack2(mismatch + open),
+                  pack2(mismatch + open) ^ pack2(match + open),
+                  pack2(-gap_extend), pack2(-open), 1u << rbits, rbits};
+}
+
+// A block's shared memory at `rows` query rows (kernel comment).
+struct ScoreLayout {
+  int col_rows;   // rows of the column state (one of them a pad)
+  int q_words;    // words a strip of a q plane holds
+  __host__ __device__ explicit ScoreLayout(int rows)
+      : col_rows(rows + 1), q_words((((rows >> 2) + 1) / 2) | 1) {}
+  __host__ __device__ size_t col_bytes() const {
+    return (size_t)col_rows * kStripLanes * 8;
+  }
+  __host__ __device__ size_t q_bytes() const {
+    return (size_t)4 * q_words * kStripLanes * 4;
+  }
+  __host__ __device__ size_t bytes() const {
+    return col_bytes() + q_bytes() + (size_t)kWChunk * kWStride;
+  }
+};
+
+// Four int8 codes in a word: a code >= 4 becomes `sentinel`.
+__device__ __forceinline__ uint32_t remap4(uint32_t v, int sentinel) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c = static_cast<int8_t>((v >> (8 * u)) & 0xFFu);
+    r |= static_cast<uint32_t>((c < 4 ? c : sentinel) & 0xFF) << (8 * u);
+  }
+  return r;
+}
+
+// Bit 7 of each byte is set iff that byte of a equals that byte of b (the
+// other bits mean nothing).
+__device__ __forceinline__ uint32_t equal_bits(uint32_t a, uint32_t b) {
+  const uint32_t x = a ^ b;
+  return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x);
+}
+
+// prmt with a constant selector; a selector nibble n | 8 spreads the sign
+// bit of byte n over the result byte.
+template <uint32_t kSel>
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "n"(kSel));
+  return d;
+}
+
+// One DP cell of both pairs: row kRow of the four whose equality bits are
+// in eq_lo / eq_hi. `cell` is the column state of this row (H - open, E).
+template <int kRow>
+__device__ __forceinline__ void score_cell(uint2* cell, uint32_t eq_lo,
+                                           uint32_t eq_hi, uint32_t row_code,
+                                           const Scoring2& sc,
+                                           uint32_t& hm_diag, uint32_t& hm_up,
+                                           uint32_t& f_up, uint32_t& colkey) {
+  constexpr uint32_t kLo = kRow | 8, kHi = (kRow + 4) | 8;
+  const uint2 left = *cell;                         // (H - open, E)(i, j - 1)
+  const uint32_t e = __viaddmax_s16x2(left.y, sc.neg_extend, left.x);
+  const uint32_t match =
+      prmt<kLo | (kLo << 4) | (kHi << 8) | (kHi << 12)>(eq_lo, eq_hi);
+  const uint32_t sub = sc.mismatch_open ^ (match & sc.match_delta);
+  const uint32_t diag = __viaddmax_s16x2(hm_diag, sub, kMin2);
+  const uint32_t f = __viaddmax_s16x2(f_up, sc.neg_extend, hm_up);
+  const uint32_t h = __vimax3_s16x2_relu(diag, e, f);
+  const uint32_t hm = __viaddmax_s16x2(h, sc.neg_open, kMin2);
+  *cell = make_uint2(hm, e);
+  // (H << rbits) + (2^rbits - i): both halves stay below 2^15, so the
+  // 32-bit multiply-add carries nothing across
+  colkey = __viaddmax_s16x2(h * sc.key_mul + row_code, pack2(-kRow), colkey);
+  hm_diag = left.x;
+  hm_up = hm;
+  f_up = f;
+}
+
+// A block is one warp and scores 32 pairs: lane l and lane l + 16 share the
+// pair of pairs l. The rows of a pair are cut into two strips of whole q
+// words; strip 1 (lanes 16-31) runs one column behind strip 0, which hands
+// it H - open and F of its last row and the column's w codes by shuffle:
+// the same shared memory a pair feeds twice the warps, in units of work
+// half the size.
+//
+// Shared memory: the column state, col_rows x 16 words of 64 bits (strip
+// 1's rows start one row below its first row, so that the two strips never
+// meet in a bank); q as [pair parity][strip][word][pair of pairs], a
+// strip's words an odd count apart for the same reason; one chunk of w as
+// [column][pair] bytes.
+__global__ void __launch_bounds__(kScoreThreads)
+sw_score_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
+                int32_t* __restrict__ score, int32_t* __restrict__ i_end,
+                int32_t* __restrict__ j_end, int n, int L, int W, int rows,
+                Scoring2 sc) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ScoreLayout lay(rows);
+  const int R4 = rows >> 2;
+  uint2* col = reinterpret_cast<uint2*>(smem);
+  uint32_t* qs = reinterpret_cast<uint32_t*>(smem + lay.col_bytes());
+  unsigned char* ws = smem + lay.col_bytes() + lay.q_bytes();
+  const int lane = threadIdx.x;
+  const int strip = lane / kStripLanes;
+  const int pp = lane % kStripLanes;      // the thread's pair of pairs
+  const int base = blockIdx.x * kScorePairs;   // the block's first pair
+  const int k0 = strip ? R4 / 2 : 0;      // the strip's q words [k0, k1)
+  const int k1 = strip ? R4 : R4 / 2;
+
+  // q: a pair's row at a time, lane by lane its words; a pair past n is all
+  // code 4 and scores nothing
+  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q);
+  const int L4 = L >> 2;
+#pragma unroll 4
+  for (int p = 0; p < kScorePairs; ++p) {
+    for (int k = lane; k < R4; k += 32) {
+      const uint32_t v =
+          base + p < n ? __ldg(q32 + (size_t)(base + p) * L4 + k) : 0x04040404u;
+      const int s = k >= R4 / 2;          // the strip that holds word k
+      qs[(((p & 1) * 2 + s) * lay.q_words + k - s * (R4 / 2)) * kStripLanes +
+         (p >> 1)] = remap4(v, 4);
+    }
+  }
+  const uint32_t hm0 = sc.neg_open;       // H = 0, less open
+  uint2* my_col = col + (4 * k0 + strip) * kStripLanes + pp;
+  for (int i = 0; i < 4 * (k1 - k0); ++i)
+    my_col[i * kStripLanes] = make_uint2(hm0, pack2(kBorder16));
+  const uint32_t* my_q = qs + strip * lay.q_words * kStripLanes + pp;
+  const int q_plane = 2 * lay.q_words * kStripLanes;
+  const uint32_t row_code0 = pack2((1 << sc.rbits) - (4 * k0 + 1));
+
+  // per half: (column key << 16) | (0xFFFF - j) of the best cell so far, so
+  // that one max keeps the highest H, then the lowest i, then the lowest j
+  uint32_t best_lo = 0, best_hi = 0;
+  uint32_t last_hm = hm0, last_f = pack2(kBorder16);  // my last row's H - open
+  uint32_t diag_in = hm0, wpair = 0;                  // and F; what came in
+  const int steps = W + 1;                // strip s does column t - s at step t
+  for (int t0 = 0; t0 < steps; t0 += kWChunk) {
+    const int cw = min(kWChunk, steps - t0);
+    __syncthreads();          // the last chunk is used up (first: q staged)
+    if (t0 + lane < W) {      // kWChunk is a warp's width: a column a lane
+#pragma unroll 8
+      for (int p = 0; p < kScorePairs; ++p) {
+        const int b = base + p < n ? w[(size_t)(base + p) * W + t0 + lane] : 4;
+        ws[lane * kWStride + p] = static_cast<unsigned char>(b < 4 ? b : 5);
+      }
+    }
+    __syncthreads();
+    for (int c = 0; c < cw; ++c) {
+      const int j = t0 + c + 1 - strip;   // my column at this step
+      // from strip 0: its last row at this column (it did it one step ago),
+      // and the column's w codes
+      uint32_t hm_up = hm0, f_up = pack2(kBorder16), hm_diag = hm0;
+      const uint32_t in_hm = __shfl_up_sync(kFull, last_hm, kStripLanes);
+      const uint32_t in_f = __shfl_up_sync(kFull, last_f, kStripLanes);
+      const uint32_t in_w = __shfl_up_sync(kFull, wpair, kStripLanes);
+      if (strip > 0) {
+        hm_up = in_hm;
+        f_up = in_f;
+        hm_diag = diag_in;                // what came in a column ago
+        diag_in = in_hm;
+        wpair = in_w;
+      }
+      if (strip == 0 && j <= W)
+        wpair = *reinterpret_cast<const uint16_t*>(ws + c * kWStride + 2 * pp);
+      if (j < 1 || j > W) continue;       // filling or draining the strips
+      const uint32_t w_lo = prmt<0x0000>(wpair, 0u);
+      const uint32_t w_hi = prmt<0x1111>(wpair, 0u);
+      uint32_t colkey = 0;
+      uint32_t row_code = row_code0;
+      uint2* cell = my_col;
+      const uint32_t* qk = my_q;
+#pragma unroll 2
+      for (int k = k0; k < k1; ++k) {
+        const uint32_t eq_lo = equal_bits(qk[0], w_lo);
+        const uint32_t eq_hi = equal_bits(qk[q_plane], w_hi);
+        score_cell<0>(cell, eq_lo, eq_hi, row_code, sc, hm_diag, hm_up, f_up,
+                      colkey);
+        score_cell<1>(cell + kStripLanes, eq_lo, eq_hi, row_code, sc, hm_diag,
+                      hm_up, f_up, colkey);
+        score_cell<2>(cell + 2 * kStripLanes, eq_lo, eq_hi, row_code, sc,
+                      hm_diag, hm_up, f_up, colkey);
+        score_cell<3>(cell + 3 * kStripLanes, eq_lo, eq_hi, row_code, sc,
+                      hm_diag, hm_up, f_up, colkey);
+        cell += 4 * kStripLanes;
+        qk += kStripLanes;
+        row_code -= 0x00040004u;
+      }
+      last_hm = hm_up;
+      last_f = f_up;
+      const uint32_t low = 0xFFFFu - (uint32_t)j;
+      best_lo = max(best_lo, (colkey << 16) | low);
+      best_hi = max(best_hi, (colkey & 0xFFFF0000u) | low);
+    }
+  }
+  // the strips' bests meet in strip 0 (their rows differ, so their keys do)
+  best_lo = max(best_lo, __shfl_down_sync(kFull, best_lo, kStripLanes));
+  best_hi = max(best_hi, __shfl_down_sync(kFull, best_hi, kStripLanes));
+  if (strip != 0) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int b = base + 2 * pp + half;
+    if (b >= n) break;
+    const uint32_t best = half ? best_hi : best_lo;
+    const int key = (int)(best >> 16);
+    const int h = key >> sc.rbits;        // a cell with H = 0 keys < 2^rbits
+    score[b] = h;
+    i_end[b] = h ? (1 << sc.rbits) - (key & ((1 << sc.rbits) - 1)) : 0;
+    j_end[b] = h ? (int)(0xFFFFu - (best & 0xFFFFu)) : 0;
+  }
+}
+// ---- K2, K3 ----------------------------------------------------------------
 
 // One thread per pair; see the file comment. q rows are read four codes at a
 // time (rows and L are multiples of 4, checked by the wrapper).
-template <bool kDirs>
 __global__ void __launch_bounds__(kThreads)
-sw_dp_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
-             int32_t* __restrict__ score, int32_t* __restrict__ i_end,
-             int32_t* __restrict__ j_end, uint8_t* __restrict__ dirs, int n,
-             int L, int W, int rows, Scoring sc) {
+sw_align_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
+                int32_t* __restrict__ score, int32_t* __restrict__ i_end,
+                int32_t* __restrict__ j_end, uint8_t* __restrict__ dirs,
+                int n, int L, int W, int rows, Scoring sc) {
   extern __shared__ uint32_t col[];  // (rows + 1) x kThreads packed (H, E)
   const int tid = threadIdx.x;
   const int b = blockIdx.x * kThreads + tid;
@@ -91,13 +381,11 @@ sw_dp_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
         const int diag =
             hdiag + ((qi == wj && qi < 4) ? sc.match : sc.mismatch);
         const int h = max(max(diag, 0), max(e, f));
-        if (kDirs) {
-          const int ch = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
-          const int nib =
-              ch | (e_open >= e_ext ? 4 : 0) | (f_open >= f_ext ? 8 : 0);
-          dirs[((size_t)(i + j - 2) * rows + (i - 1)) * n + b] =
-              static_cast<uint8_t>(nib);
-        }
+        const int ch = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
+        const int nib =
+            ch | (e_open >= e_ext ? 4 : 0) | (f_open >= f_ext ? 8 : 0);
+        dirs[((size_t)(i + j - 2) * rows + (i - 1)) * n + b] =
+            static_cast<uint8_t>(nib);
         if (h > 0) best = max(best, h * kTie - (i * (W + 1) + j));
         col[i * kThreads + tid] = pack_he(h, e);
         hdiag = hleft;
@@ -148,44 +436,45 @@ sw_traceback_kernel(const uint8_t* __restrict__ dirs,
   }
 }
 
-template <bool kDirs>
-int launch_dp(const void* q, const void* w, void* score, void* i_end,
-              void* j_end, void* dirs, int n, int L, int W, int rows,
-              int match, int mismatch, int gap_open, int gap_extend, int neg,
-              void* stream) {
-  const size_t smem = (size_t)(rows + 1) * kThreads * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      sw_dp_kernel<kDirs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const Scoring sc{match, mismatch, gap_open + gap_extend, gap_extend, neg};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sw_dp_kernel<kDirs><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(score), static_cast<int32_t*>(i_end),
-      static_cast<int32_t*>(j_end), static_cast<uint8_t*>(dirs), n, L, W,
-      rows, sc);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
+// K1. `rbits` is the width of the row field of the column key (file
+// comment): rows <= 1 << rbits and (rows * match + 1) << rbits <= 32768.
 int rambl_sw_score(const void* q, const void* w, void* score, void* i_end,
                    void* j_end, int n, int L, int W, int rows, int match,
-                   int mismatch, int gap_open, int gap_extend, int neg,
+                   int mismatch, int gap_open, int gap_extend, int rbits,
                    void* stream) {
-  return launch_dp<false>(q, w, score, i_end, j_end, nullptr, n, L, W, rows,
-                          match, mismatch, gap_open, gap_extend, neg, stream);
+  const size_t smem = ScoreLayout(rows).bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kScorePairs - 1) / kScorePairs;
+  sw_score_kernel<<<blocks, kScoreThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(w),
+      static_cast<int32_t*>(score), static_cast<int32_t*>(i_end),
+      static_cast<int32_t*>(j_end), n, L, W, rows,
+      make_scoring2(match, mismatch, gap_open, gap_extend, rbits));
+  return (int)cudaGetLastError();
 }
 
 int rambl_sw_align(const void* q, const void* w, void* score, void* i_end,
                    void* j_end, void* dirs, int n, int L, int W, int rows,
                    int match, int mismatch, int gap_open, int gap_extend,
                    int neg, void* stream) {
-  return launch_dp<true>(q, w, score, i_end, j_end, dirs, n, L, W, rows,
-                         match, mismatch, gap_open, gap_extend, neg, stream);
+  const size_t smem = (size_t)(rows + 1) * kThreads * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_align_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Scoring sc{match, mismatch, gap_open + gap_extend, gap_extend, neg};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  sw_align_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(w),
+      static_cast<int32_t*>(score), static_cast<int32_t*>(i_end),
+      static_cast<int32_t*>(j_end), static_cast<uint8_t*>(dirs), n, L, W,
+      rows, sc);
+  return (int)cudaGetLastError();
 }
 
 int rambl_sw_traceback(const void* dirs, const void* i_end, const void* j_end,

@@ -35,6 +35,7 @@ CH_ZERO, CH_DIAG, CH_E, CH_F = 0, 1, 2, 3
 
 TIE = 32768          # best-cell packing: key = H * TIE - (i * (W + 1) + j)
 NONE_KEY = -(1 << 30)
+BORDER16 = -16384    # neg_inf of the 16-bit arithmetic (`sw_score_packed16`)
 
 
 def decode_best(best: torch.Tensor, W: int):
@@ -133,6 +134,76 @@ def sw_score(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):
     """Score-only pass. q (B, L) int8, w (B, W) int8 ->
     (score, i_end, j_end), each (B,) int32 with a 1-based end cell."""
     return decode_best(_sw(q, w, sc, want_dirs=False)[0], w.shape[1])
+
+
+def check_packed16(rows: int, sc: ScoringParams) -> int:
+    """The row bits of `sw_score_packed16`'s column key, after checking that
+    every value of the 16-bit arithmetic fits a half: the key
+    (H << rbits) + (2^rbits - i) stays below 2^15, and the border less one
+    extension stays above -2^15."""
+    rbits = max(rows - 1, 1).bit_length()
+    open_ = sc.gap_open + sc.gap_extend
+    if ((rows * max(sc.match, 0) + 1) << rbits > 1 << 15
+            or not 0 < sc.gap_extend <= open_ < -BORDER16
+            or not BORDER16 < sc.mismatch <= sc.match < -BORDER16):
+        raise ValueError(
+            f"rows={rows} with {sc} does not fit the score kernel's 16-bit "
+            "arithmetic")
+    return rbits
+
+
+def sw_score_packed16(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):
+    """`sw_score` in the arithmetic of the CUDA score kernel
+    (`csrc/sw.cu`), step for step, in torch.int16: a column sweep
+    (rows inner) whose state is (H - open, E) a row, borders at BORDER16
+    instead of neg_inf, and the best cell tracked as a 16-bit column key
+    (H << rbits) + (2^rbits - i) that replaces the pair's best once a column
+    only when strictly greater. Bit-identical to `sw_score`; the tests hold
+    it to that. Nothing on the card's path calls it: it pins the kernel's
+    arithmetic where there is no card."""
+    B, L = q.shape
+    W = w.shape[1]
+    rbits = check_packed16(L, sc)
+    i16 = torch.int16
+    dev = q.device
+
+    def const(x):
+        return torch.full((B,), x, dtype=i16, device=dev)
+
+    open_ = sc.gap_open + sc.gap_extend
+    # codes that can never match are remapped as the kernel stages them
+    qc = torch.where(q < 4, q, 4)
+    wc = torch.where(w < 4, w, 5)
+    hm = [const(-open_) for _ in range(L)]          # H(i, j - 1) - open
+    e_col = [const(BORDER16) for _ in range(L)]     # E(i, j - 1)
+    best = torch.zeros(B, dtype=i16, device=dev)
+    best_j = torch.zeros(B, dtype=i16, device=dev)
+    for j in range(1, W + 1):
+        hm_diag, hm_up, f_up = const(-open_), const(-open_), const(BORDER16)
+        colkey = torch.zeros(B, dtype=i16, device=dev)
+        for i in range(1, L + 1):
+            e = torch.maximum(e_col[i - 1] - sc.gap_extend, hm[i - 1])
+            sub = torch.where(qc[:, i - 1] == wc[:, j - 1], sc.match + open_,
+                              sc.mismatch + open_).to(i16)
+            diag = hm_diag + sub
+            f = torch.maximum(f_up - sc.gap_extend, hm_up)
+            h = torch.clamp(torch.maximum(diag, torch.maximum(e, f)), min=0)
+            hm_diag = hm[i - 1]
+            hm[i - 1] = hm_up = h - open_
+            e_col[i - 1] = e
+            f_up = f
+            colkey = torch.maximum(colkey, (h << rbits) + ((1 << rbits) - i))
+        better = colkey > best
+        best = torch.where(better, colkey, best)
+        best_j = torch.where(better, j, best_j)
+    if {t.dtype for t in (best, colkey, h, e, f)} != {i16}:
+        raise AssertionError("the sweep left 16-bit arithmetic")
+    score = (best >> rbits).to(torch.int32)
+    i_end = ((1 << rbits) - (best & ((1 << rbits) - 1))).to(torch.int32)
+    none = score == 0
+    zero = torch.zeros_like(score)
+    return (score, torch.where(none, zero, i_end),
+            torch.where(none, zero, best_j.to(torch.int32)))
 
 
 def sw_align(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):

@@ -1,22 +1,31 @@
 """Wrappers of the hand-written Hopper SW kernels (`csrc/sw.cu`).
 
 - `sw_score_cuda` runs K1 (replaces `rambl_tpu/ops/sw_pallas.py::
-  _score_kernel`) on every (query, window) pair of a batch;
+  _score_kernel`) on every (query, window) pair of a batch: two pairs a
+  thread in packed 16-bit DPX arithmetic on q and w tiles staged in shared
+  memory;
 - `sw_align_cuda` runs K2 (replaces `sw_pallas.py::_align_kernel`): the
-  same DP plus one direction byte per cell;
+  same DP in 32-bit arithmetic, one thread a pair, plus one direction byte
+  per cell;
 - `sw_traceback_cuda` runs K3 (replaces `sw_pallas.py::
   sw_traceback_packed`) over K2's bytes;
 - `sw_align_traceback_cuda` is K2 then K3, as the align step calls them.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On CPU tensors it runs the plain PyTorch twin from `ops.sw`, which is
-what the CPU tests exercise. `LAUNCHES` counts kernel launches, one per
+what the CPU tests exercise (`python -m pytest tests/test_torch_sw.py`; they
+also hold K1's 16-bit arithmetic, `ops.sw.sw_score_packed16`, against the
+twin and the JAX package). `LAUNCHES` counts kernel launches, one per
 launch and nowhere else, so a run can show that it went through the kernels.
+The kernels themselves are held against the twins on a card by
+`python -m pytest --noconftest tests/test_torch_kernels_cuda.py` and by
+`python3 chip_smoke.py`, both from the repository root.
 
 The library is built from every source in `csrc/` (these kernels, those
-of `ops.sw_variants` and K4 of `parallel.ring_dma`) with nvcc for sm_90a at first use into `_build/`
-(ignored by git) and rebuilt when the sources or flags change. The C entry
-points take plain pointers and the stream, loaded with ctypes.
+of `ops.sw_variants` and K4 of `parallel.ring_dma`) with nvcc for sm_90a at
+first use into `_build/` (ignored by git) and rebuilt when the sources or
+flags change. The C entry points take plain pointers and the stream, loaded
+with ctypes.
 
 `rows` keeps the reference contract (`sw_pallas.py::sw_score_pallas`): only
 the first `rows` query rows are swept (0 = all). That is exact whenever every
@@ -47,7 +56,7 @@ _LIB_NAME = "librambl_sw.so"
 #: `-Xptxas -v` report of registers, shared memory and spills per kernel
 BUILD_LOG = os.path.join(_BUILD, "nvcc.log")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -56,11 +65,6 @@ _lib_lock = threading.Lock()
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _sources() -> list[str]:
-    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
-                  if f.endswith((".cu", ".cuh")))
 
 
 def _nvcc() -> str:
@@ -74,33 +78,52 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
 
 
+def _in(folder: str, suffix: str) -> list[str]:
+    return sorted(os.path.join(folder, f) for f in os.listdir(folder)
+                  if f.endswith(suffix))
+
+
 def build_library() -> str:
-    """Compile csrc/*.cu into _build/librambl_sw.so unless an up-to-date
-    build exists; returns the library path. The compiler's output is kept
-    in BUILD_LOG."""
-    srcs = _sources()
+    """Compile every csrc/*.cu into _build/librambl_sw.so unless an
+    up-to-date build exists; returns the library path. One nvcc a source,
+    all started together, then one link. The compilers' output is kept in
+    BUILD_LOG."""
+    srcs = _in(_CSRC, ".cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _in(_CSRC, ".cuh"):
         with open(s, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()
     lib = os.path.join(_BUILD, _LIB_NAME)
-    stamp = os.path.join(_BUILD, _LIB_NAME + ".sha256")
+    stamp = lib + ".sha256"
     if os.path.exists(lib) and os.path.exists(stamp):
         with open(stamp) as f:
             if f.read().strip() == digest:
                 return lib
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in srcs
-                                              if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{lib}.{os.getpid()}"
+    objs = [f"{tag}.{i}.o" for i in range(len(srcs))]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for o, s in zip(objs, srcs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    ok = all(p.returncode == 0 for p in procs)
+    if ok:
+        cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", tag + ".tmp", *objs])
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        outs.append(link.stdout + link.stderr)
+        ok = link.returncode == 0
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
     with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+        f.write(log)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if not ok:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    os.replace(tag + ".tmp", lib)
     with open(stamp, "w") as f:
         f.write(digest)
     return lib
@@ -119,10 +142,12 @@ def load_library() -> ctypes.CDLL:
             lib.rambl_sw_variant_score.argtypes = [P] * 5 + [I] * 11 + [P]
             lib.rambl_sw_pretransposed.argtypes = [P] * 3 + [I] * 8 + [P]
             # K4 (csrc/ring.cu, wrapped by parallel.ring_dma)
-            lib.rambl_ring_copy.argtypes = [P, P, LL, I, I, P, P, P]
+            lib.rambl_ring_copy.argtypes = [P, P, P, I, I, I, P, P, P]
             lib.rambl_ring_wait.argtypes = [P, I, I, LL, P, P]
             lib.rambl_ring_barrier.argtypes = [P, P, P, I, LL, P, P]
             lib.rambl_ring_enable_peer.argtypes = [I, I]
+            lib.rambl_ring_layout.argtypes = [P, P, P]
+            lib.rambl_ring_layout.restype = None
             for fn in (lib.rambl_sw_score, lib.rambl_sw_align,
                        lib.rambl_sw_traceback, lib.rambl_sw_variant_score,
                        lib.rambl_sw_pretransposed, lib.rambl_ring_copy,
@@ -203,13 +228,20 @@ def _scoring_args(sc: ScoringParams):
 
 def sw_score_cuda(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams,
                   rows: int = 0):
-    """K1. q (n, L) int8, w (n, W) int8 -> (score, i_end, j_end) (n,) int32."""
+    """K1. q (n, L) int8, w (n, W) int8 -> (score, i_end, j_end) (n,) int32.
+
+    On the card the kernel works in packed 16-bit halves (two pairs a
+    thread, `csrc/sw.cu`); `ops.sw.check_packed16` raises on shapes
+    or scores whose values would not fit a half. `ops.sw.sw_score_packed16`
+    is that arithmetic in plain PyTorch, held against `ops.sw.sw_score`
+    (the twin the CPU path runs) in tests/test_torch_sw.py."""
     L, W = q.shape[1], w.shape[1]
     rows = _rows(rows, L)
     _check_key(rows, W)
     if _on_cpu(q, w):
         return _twin.sw_score(q[:, :rows], w, sc)
     _check_pair_cuda(q, w, rows, sc)
+    rbits = _twin.check_packed16(rows, sc)
     n = q.shape[0]
     out = [torch.empty((n,), dtype=torch.int32, device=q.device)
            for _ in range(3)]
@@ -217,7 +249,8 @@ def sw_score_cuda(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams,
         with torch.cuda.device(q.device):
             rc = load_library().rambl_sw_score(
                 q.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in out),
-                n, L, W, rows, *_scoring_args(sc), _stream(q))
+                n, L, W, rows, sc.match, sc.mismatch, sc.gap_open,
+                sc.gap_extend, rbits, _stream(q))
         _raise_on(rc, "sw_score")
         LAUNCHES["score"] += 1
     return tuple(out)

@@ -24,7 +24,9 @@ from rambl_tpu_torch.ops import sw_cuda
 from rambl_tpu_torch.ops import sw_variants as sv
 from rambl_tpu_torch.parallel import ring_dma
 from rambl_tpu_torch.parallel.mesh import data_mesh
+from rambl_tpu_torch.utils.ring_cases import TUPLE_CASES, ring_tuples
 from rambl_tpu_torch.utils.sw_cases import (
+    adversarial_pairs,
     gapped_pairs,
     planted_pairs,
     short_reads,
@@ -66,6 +68,63 @@ def test_score_kernel_matches_twin(dev, rows):
     torch.cuda.synchronize()
     assert sw_cuda.LAUNCHES["score"] == before + 1
     _equal(got, tsw.sw_score(qt[:, :rows or L], wt, SC))
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 63, 64, 65, 1000 + 37])
+@pytest.mark.parametrize("rows", [0, ROWS])
+def test_score_kernel_ragged_sizes(dev, n, rows):
+    # n = 1, odd n (the last thread's second half has no pair), n not a
+    # multiple of a block's pairs; the results beyond n stay untouched
+    q, w = short_reads(n, n, L, W, ROWS, min_len=40)
+    qt, wt = _on(dev, q, w)
+    got = sw_cuda.sw_score_cuda(qt, wt, SC, rows=rows)
+    torch.cuda.synchronize()
+    _equal(got, tsw.sw_score(qt[:, :rows or L], wt, SC))
+    for g, r in zip(got, sw_batch(q[:64], w[:64], SC, want_dirs=False)):
+        np.testing.assert_array_equal(r, g[:64].cpu().numpy())
+
+
+def test_score_kernel_empty_batch_launches_nothing(dev):
+    q = torch.zeros((0, L), dtype=torch.int8, device=dev)
+    w = torch.zeros((0, W), dtype=torch.int8, device=dev)
+    before = sw_cuda.LAUNCHES["score"]
+    got = sw_cuda.sw_score_cuda(q, w, SC, rows=ROWS)
+    assert sw_cuda.LAUNCHES["score"] == before
+    assert all(g.shape == (0,) and g.dtype == torch.int32 for g in got)
+
+
+@pytest.mark.parametrize("shape", [(4, 9), (12, 21), (16, 24), (20, 33),
+                                   (24, 33), (32, 48), (48, 161), (128, 161)])
+def test_score_kernel_other_shapes(dev, shape):
+    # small and odd widths: uneven strips of rows (1, 3 and 5 q words), a
+    # window that is not a multiple of the staged chunk or of 4 bytes
+    Ls, Ws = shape
+    q, w = planted_pairs(9, 300, Ls, Ws)
+    q[-3:], w[-3:] = 4, 4                              # all-N pairs
+    qt, wt = _on(dev, q, w)
+    got = sw_cuda.sw_score_cuda(qt, wt, SC)
+    _equal(got, tsw.sw_score(qt, wt, SC))
+    assert not any(int(g[-3:].abs().sum()) for g in got)
+
+
+def test_score_kernel_adversarial_pairs(dev):
+    # the CPU tests' cases of the 16-bit arithmetic, on the kernel
+    q, w = adversarial_pairs(10, L, W)
+    qt, wt = _on(dev, q, w)
+    for rows in (0, ROWS):
+        got = sw_cuda.sw_score_cuda(qt, wt, SC, rows=rows)
+        _equal(got, tsw.sw_score(qt[:, :rows or L], wt, SC))
+        assert (got[0][:32] == (rows or L)).all()
+        assert (got[0][128:160] == 0).all()
+        for g, r in zip(got, tsw.sw_score_packed16(
+                qt[:160, :rows or L].cpu(), wt[:160].cpu(), SC)):
+            assert torch.equal(g[:160].cpu(), r)
+
+
+def test_score_kernel_rejects_scores_beyond_16_bits(dev):
+    q, w = _on(dev, *planted_pairs(4, 8, L, W))
+    with pytest.raises(ValueError, match="16-bit"):
+        sw_cuda.sw_score_cuda(q, w, ScoringParams(match=2))
 
 
 def test_score_kernel_matches_oracle(dev):
@@ -196,12 +255,52 @@ def test_ring_kernel_matches_plain(dev, n, impl):
     want = _rotate(mesh, state, "ppermute")
     torch.cuda.synchronize()
     ring_dma.check_ring(mesh)
-    assert ring_dma.LAUNCHES["ring"] == before + 2 * n
+    assert ring_dma.LAUNCHES["ring"] == before + n      # one launch a rank
     for g, w in zip(got, want):
         _equal(g, w)
     np.testing.assert_array_equal(np.roll(a, 1, 0)[0], got[0][0].cpu())
     np.testing.assert_array_equal(np.roll(b, 1, 0)[n - 1],
                                   got[n - 1][1].cpu())
+
+
+@pytest.mark.parametrize("impl", ["dma", "dma_barrier"])
+@pytest.mark.parametrize("words,misalign", TUPLE_CASES)
+def test_ring_kernel_arrays_tails_and_misaligned_views(dev, impl, words,
+                                                       misalign):
+    # 1 to 4 arrays a rank in ONE launch: odd word counts (scalar tails),
+    # arrays smaller than a tile, views that are not 16-byte aligned (all
+    # scalar), and several tiles a block
+    n = 3
+    mesh = data_mesh(devices=[dev] * n)
+    host, state, out = ring_tuples(dev, n, len(words), words, misalign)
+    before = ring_dma.LAUNCHES["ring"]
+    got = _rotate(mesh, state, impl, out=out)
+    torch.cuda.synchronize()
+    ring_dma.check_ring(mesh)
+    assert ring_dma.LAUNCHES["ring"] == before + n
+    want = _rotate(mesh, state, "ppermute")
+    for r in range(n):
+        for a in range(len(words)):
+            assert got[r][a].data_ptr() == out[r][a].data_ptr()
+            np.testing.assert_array_equal(host[(r - 1) % n][a],
+                                          got[r][a].cpu().numpy())
+            assert torch.equal(got[r][a], want[r][a])
+
+
+def test_ring_walk_mirror_has_the_kernels_constants(dev):
+    # copy_walk (held on the CPU to cover every word once) mirrors the
+    # kernel's walk only while both cut the tuple up by the same numbers
+    assert ring_dma.kernel_layout(sw_cuda.load_library()) == {
+        "TILE_WORDS": ring_dma.TILE_WORDS,
+        "SCALAR_THREADS": ring_dma.SCALAR_THREADS,
+        "MAX_ARRAYS": ring_dma.MAX_ARRAYS}
+
+
+def test_ring_kernel_takes_at_most_four_arrays(dev):
+    mesh = data_mesh(devices=[dev] * 2)
+    _, state, _ = ring_tuples(dev, 2, 0, (8,) * 5)
+    with pytest.raises(ValueError, match="1 to 4 arrays"):
+        ring_dma.ring_permute_dma(state, mesh)
 
 
 @pytest.mark.parametrize("impl", ["dma", "dma_barrier"])
@@ -251,9 +350,9 @@ def test_ring_kernel_times_out_instead_of_hanging(dev, waiter):
     else:
         # rank 0 waits for an epoch no rank will send
         ring_dma.ring_rotate(state, mesh, "dma_barrier")
-        ring = mesh.scratch[("ring", 2)]
+        ring = mesh.scratch["ring"]
         rc = sw_cuda.load_library().rambl_ring_wait(
-            ring.flags[0].data_ptr(), ring.n_arrays, ring.epoch + 1,
+            ring.flags[0].data_ptr(), 1, ring.epoch + 1,
             1_000_000, ring.status.data_ptr(), mesh.streams[0].cuda_stream)
         assert rc == 0
     mesh.join()

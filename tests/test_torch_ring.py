@@ -10,7 +10,9 @@ Inputs are the shared `small_ds` mock community and numpy-seeded arrays.
 Everything is integer: no tolerance.
 
 The last tests model-check the rotation's launch order
-(`ring_dma.rotation_plan`) over random schedules of the rank streams.
+(`ring_dma.rotation_plan`, one copy a rank) over random schedules of the rank
+streams, and hold the mirror of K4's tile walk (`ring_dma.copy_walk`) to
+covering every word of every array exactly once.
 """
 
 import jax
@@ -18,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.sharding import PartitionSpec as P
 
 from rambl_tpu.config import PipelineConfig as JConfig
@@ -301,7 +305,7 @@ def test_mesh_stream_guards(small_ds, small_index, small_tax):
 
 # ---- (f) model check of K4's protocol ------------------------------------------
 
-def _program(n, rotations, barrier, n_arrays=2, drop=()):
+def _program(n, rotations, barrier, drop=()):
     """Per-rank stream programs, in issue order, of `rotations` rounds of
     (every rank reads its shard; rotate), as the wrapper issues them from
     `rotation_plan` (minus the ops whose kind, or (kind, event tag), is in
@@ -315,7 +319,9 @@ def _program(n, rotations, barrier, n_arrays=2, drop=()):
         for r in range(n):
             progs[r] += [("read", r, cur, (r - t) % n, "begin"),
                          ("read", r, cur, (r - t) % n, "end")]
-        for op in ring_dma.rotation_plan(n, n_arrays, barrier):
+        plan = ring_dma.rotation_plan(n, barrier)
+        assert sum(op[0] == "copy" for op in plan) == n     # one a rank
+        for op in plan:
             kind, r = op[0], op[1]
             if kind in drop or (kind, op[-1]) in drop:
                 continue
@@ -328,33 +334,28 @@ def _program(n, rotations, barrier, n_arrays=2, drop=()):
             elif kind == "barrier":
                 progs[r] += [("bsignal", r, epoch), ("bwait", r, epoch)]
             elif kind == "copy":
-                # the kernel reads and writes array a, then (dma_barrier)
-                # releases the receiver's flag for it
+                # the kernel reads and writes the whole tuple, then
+                # (dma_barrier) releases the receiver's flag
                 dst = (r + 1) % n
-                progs[r] += [("cbegin", r, op[2], cur, dst, nxt),
-                             ("cend", r, op[2], cur, dst, nxt,
+                progs[r] += [("cbegin", r, cur, dst, nxt),
+                             ("cend", r, cur, dst, nxt,
                               epoch if barrier else None)]
             else:
                 progs[r].append(("wait", r, epoch))
     return progs
 
 
-def _run_model(n, progs, rng, n_arrays=2):
+def _run_model(n, progs, rng):
     """Execute the stream programs in a random interleaving. Returns None,
     or the first violation: a write into a buffer its owner is reading,
     a read of a buffer that does not hold the expected shard, or a
     deadlock."""
     pc = [0] * n
     recorded = {}                          # (rank, tag) -> records run
-    flags = {}                             # (rank, array) -> epoch
+    flags = {}                             # rank -> epoch
     bar = {}                               # (rank, side) -> epoch
-    # content[(rank, buf, array)] = shard id it holds
-    content = {(r, 0, a): r for r in range(n) for a in range(n_arrays)}
-    # arrays being read / written: (rank, buf, array)
-    reading, writing = set(), set()
-
-    def held(keys, rank, buf):
-        return any(k[:2] == (rank, buf) for k in keys)
+    content = {(r, 0): r for r in range(n)}    # (rank, buf) -> shard id
+    reading, writing = [], []              # buffers (rank, buf) in use
 
     def ready(op):
         kind = op[0]
@@ -363,8 +364,7 @@ def _run_model(n, progs, rng, n_arrays=2):
         if kind == "bwait":
             return all(bar.get((op[1], s), 0) >= op[2] for s in (0, 1))
         if kind == "wait":
-            return all(flags.get((op[1], a), 0) >= op[2]
-                       for a in range(n_arrays))
+            return flags.get(op[1], 0) >= op[2]
         return True
 
     while any(pc[r] < len(progs[r]) for r in range(n)):
@@ -378,33 +378,32 @@ def _run_model(n, progs, rng, n_arrays=2):
         kind = op[0]
         if kind == "read":
             _, _, buf, shard, phase = op
-            whole = {(r, buf, a) for a in range(n_arrays)}
             if phase == "begin":
-                if held(writing, r, buf):
+                if (r, buf) in writing:
                     return f"rank {r} reads buffer {buf} while it is written"
-                if any(content.get(k) != shard for k in whole):
+                if content.get((r, buf)) != shard:
                     return f"rank {r} reads a stale shard in buffer {buf}"
-                reading |= whole
+                reading.append((r, buf))
             else:
-                reading -= whole
+                reading.remove((r, buf))
         elif kind == "record":
             recorded[r, op[2]] = recorded.get((r, op[2]), 0) + 1
         elif kind == "bsignal":
             bar[((r - 1) % n, 1)] = op[2]          # left's "from right"
             bar[((r + 1) % n, 0)] = op[2]          # right's "from left"
         elif kind == "cbegin":
-            _, _, a, src, dst, dbuf = op
-            if held(reading, dst, dbuf):
+            _, _, src, dst, dbuf = op
+            if (dst, dbuf) in reading:
                 return f"rank {r} writes rank {dst}'s buffer being read"
-            reading.add((r, src, a))
-            writing.add((dst, dbuf, a))
+            reading.append((r, src))
+            writing.append((dst, dbuf))
         elif kind == "cend":
-            _, _, a, src, dst, dbuf, epoch = op
-            content[(dst, dbuf, a)] = content[(r, src, a)]
-            reading.discard((r, src, a))
-            writing.discard((dst, dbuf, a))
+            _, _, src, dst, dbuf, epoch = op
+            content[(dst, dbuf)] = content[(r, src)]
+            reading.remove((r, src))
+            writing.remove((dst, dbuf))
             if epoch is not None:
-                flags[(dst, a)] = epoch
+                flags[dst] = epoch
     return None
 
 
@@ -437,3 +436,65 @@ def test_k4_protocol_model_catches_missing_ordering():
     # without the receive waits of dma_barrier, the same
     assert any(f and ("stale" in f or "while it is written" in f)
                for f in found(True, {"wait"}))
+
+
+# ---- (g) the mirror of K4's tile walk -------------------------------------------
+
+@settings(max_examples=200, deadline=None)
+@given(arrays=st.lists(st.tuples(st.integers(0, 200), st.booleans()),
+                       min_size=1, max_size=ring_dma.MAX_ARRAYS),
+       blocks=st.integers(1, 9), tile_words=st.sampled_from([4, 8, 32]),
+       scalar_threads=st.integers(1, 5))
+def test_k4_copy_walk_covers_every_word_once(arrays, blocks, tile_words,
+                                             scalar_threads):
+    words = [w for w, _ in arrays]
+    aligned = [al for _, al in arrays]
+    walk = ring_dma.copy_walk(words, aligned, blocks, tile_words,
+                              scalar_threads)
+    assert len(walk) == blocks
+    seen = [np.zeros(w, np.int32) for w in words]
+    runs = []
+    for block in walk:
+        for a, first, count in block["tiles"]:
+            # a bulk copy: a 16-byte aligned array, offset and size
+            assert aligned[a] and first % 4 == 0 and count % 4 == 0
+            assert 0 < count <= tile_words
+            seen[a][first:first + count] += 1
+            runs.append((a, first))
+        for a, rng in block["scalar"]:
+            seen[a][list(rng)] += 1
+    for a, w in enumerate(words):
+        assert (seen[a] == 1).all(), (a, seen[a])
+        if not aligned[a]:                       # all of it word by word
+            assert all(t[0] != a for t in runs)
+    # the grid sweeps the arrays together: round k of the blocks takes
+    # tiles k * blocks .. (k + 1) * blocks - 1, in the arrays' order
+    by_round = [t for k in range(max(len(b["tiles"]) for b in walk))
+                for b in walk for t in b["tiles"][k:k + 1]]
+    assert [t[:2] for t in by_round] == sorted(runs) and len(runs) == len(
+        by_round)
+    sizes = [len(b["tiles"]) for b in walk]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_k4_copy_walk_at_the_cohort_shards():
+    # the path's shards: 2^25 + 1 words (one tail word) and 3 x 38.4 M words
+    words = [(1 << 25) + 1, 3 * 38_400_000]
+    blocks = 132
+    walk = ring_dma.copy_walk(words, [True, True], blocks)
+    tiles = [t for b in walk for t in b["tiles"]]
+    assert sum(c for _, _, c in tiles) == (1 << 25) + 3 * 38_400_000
+    # 2,048 whole tiles, then 7,031 and a quarter
+    assert sorted({c for _, _, c in tiles}) == [ring_dma.TILE_WORDS // 4,
+                                                ring_dma.TILE_WORDS]
+    assert len(tiles) == 2048 + 7032
+    assert walk[5]["tiles"][:2] == [(0, 5 * ring_dma.TILE_WORDS,
+                                     ring_dma.TILE_WORDS),
+                                    (0, 137 * ring_dma.TILE_WORDS,
+                                     ring_dma.TILE_WORDS)]
+    scalar = [(a, list(r)) for b in walk for a, r in b["scalar"]]
+    assert scalar == [(0, [1 << 25])]
+    # an unaligned view of the same arrays goes word by word
+    walk = ring_dma.copy_walk([1001, 64], [False, True], 2)
+    assert [t for b in walk for t in b["tiles"]] == [(1, 0, 64)]
+    assert sum(len(r) for b in walk for _, r in b["scalar"]) == 1001

@@ -21,6 +21,8 @@ from rambl_tpu_torch.config import ScoringParams
 from rambl_tpu_torch.ops import sw as tsw
 from rambl_tpu_torch.ops import sw_cuda
 from rambl_tpu_torch.utils.sw_cases import (
+    ADVERSARIAL,
+    adversarial_pairs,
     gapped_pairs,
     planted_pairs,
     short_reads,
@@ -212,3 +214,95 @@ def test_wrapper_contract_errors():
                               torch.zeros((1, 160), dtype=torch.int8), SC)
     with pytest.raises(ValueError, match="do not match"):
         sw_cuda.sw_align_traceback_cuda(q, w, SC, 0, 16, 32)
+
+
+# ---- K1's 16-bit arithmetic (csrc/sw.cu) on the CPU -------------------------
+
+def _packed16_case(name):
+    """(q, w, rows) numpy int8 codes of one case; rows = 0 sweeps every
+    query row."""
+    B, L, W = 128, 32, 48
+    if name == "planted":
+        return (*planted_pairs(5, B, L, W), 0)
+    if name == "planted-rows24":
+        return (*short_reads(6, B, L, W, 20), 24)
+    if name == "gapped":
+        return (*gapped_pairs(7, B, L, W), 0)
+    if name == "all-n-window":
+        q, w = planted_pairs(8, B, L, W)
+        w[:] = 4
+        return q, w, 0
+    k = ADVERSARIAL.index(name)
+    q, w = adversarial_pairs(9, L, W, per_case=B)
+    return q[k * B:(k + 1) * B], w[k * B:(k + 1) * B], 0
+
+
+@pytest.mark.parametrize("case", [
+    "planted", "planted-rows24", "gapped", "all-n-window", *ADVERSARIAL])
+def test_packed16_matches_twin_scan_and_pallas(case):
+    q, w, rows = _packed16_case(case)
+    qr = q[:, :rows or q.shape[1]]
+    got = [t.numpy() for t in tsw.sw_score_packed16(
+        torch.from_numpy(qr.copy()), torch.from_numpy(w), SC)]
+    assert all(g.dtype == np.int32 for g in got)
+    twin = [t.numpy() for t in tsw.sw_score(torch.from_numpy(qr.copy()),
+                                            torch.from_numpy(w), SC)]
+    _assert_all_equal(twin, got)                      # tolerance 0: integers
+    _assert_all_equal(_np(*jsw.sw_score(qr, w, JSC)), got)
+    _assert_all_equal(_np(*sw_score_pallas(q, w, JSC, interpret=True,
+                                           rows=rows)), got)
+    if case in ("all-n-window", "all-mismatch"):
+        assert not np.any(got)
+    if case == "equal":
+        assert (got[0] == 32).all() and (got[1] == 32).all()
+    if case == "ties":
+        # the first block's last cell, whatever the repeats
+        assert (got[0] == 5).all() and (got[1] == 8).all()
+        assert (got[2] == 7).all()
+
+
+@pytest.mark.parametrize("rows", [0, 104])
+def test_packed16_at_the_stream_shape(rows):
+    # L = 128, W = 160 as the align step runs K1: a read equal to its window
+    # (score 104 or 128: the top of the 16-bit key's range), reads of <= 100
+    # bases with errors, all-N pairs, and a homopolymer against a cut window
+    L, W = 128, 160
+    n_rows = rows or L
+    rng = np.random.default_rng(rows)
+    q, w = short_reads(8 + rows, 8, L, W, 100, min_len=60)
+    w[0] = rng.integers(0, 4, W)
+    q[0] = w[0, 16:16 + L]                  # equal to its window at margin 16
+    q[1], w[1] = 4, 4
+    q[2], w[2] = 3, 3
+    w[2, 70:77] = 0
+    qr = np.ascontiguousarray(q[:, :n_rows])
+    got = [t.numpy() for t in tsw.sw_score_packed16(
+        torch.from_numpy(qr), torch.from_numpy(w), SC)]
+    _assert_all_equal([t.numpy() for t in tsw.sw_score(
+        torch.from_numpy(qr), torch.from_numpy(w), SC)], got)
+    _assert_all_equal(_np(*jsw.sw_score(qr, w, JSC)), got)
+    assert (got[0][0], got[1][0], got[2][0]) == (n_rows, n_rows, 16 + n_rows)
+    assert (got[0][1], got[1][1], got[2][1]) == (0, 0, 0)
+    assert got[0][2] == n_rows - 13       # 70 matches, a 7-gap, the rest
+
+
+def test_packed16_border_never_wins():
+    # the 16-bit border stands for neg_inf: E and F right after it equal
+    # H - open exactly as with the int32 border, on the first row and column
+    q = torch.tensor([[0, 1, 2, 3]], dtype=torch.int8)
+    w = torch.tensor([[0, 1, 2, 3, 0, 1]], dtype=torch.int8)
+    _assert_all_equal([t.numpy() for t in tsw.sw_score(q, w, SC)],
+                      [t.numpy() for t in tsw.sw_score_packed16(q, w, SC)])
+    assert tsw.BORDER16 - SC.gap_extend >= -(1 << 15)
+    assert tsw.BORDER16 < -(SC.gap_open + SC.gap_extend)
+
+
+def test_check_packed16_ranges():
+    assert tsw.check_packed16(104, SC) == 7 == tsw.check_packed16(128, SC)
+    assert tsw.check_packed16(32, SC) == 5
+    with pytest.raises(ValueError, match="16-bit"):
+        tsw.check_packed16(256, SC)          # (256 + 1) << 8 > 2^15
+    with pytest.raises(ValueError, match="16-bit"):
+        tsw.check_packed16(128, ScoringParams(match=2))
+    with pytest.raises(ValueError, match="16-bit"):
+        tsw.check_packed16(64, ScoringParams(gap_open=1 << 14))
