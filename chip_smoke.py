@@ -13,21 +13,26 @@ code is non-zero and no result line is printed:
 
 1. device: a CUDA card must be visible (no CPU fallback);
 2. build: nvcc compiles `rambl_tpu_torch/csrc/*.cu` for sm_90a;
-3. kernels: K1 (score), K2 (direction bits) and K3 (traceback) against their
-   plain PyTorch twin on the card, bit for bit, at the align step's shapes,
-   and 256 pairs each against the NumPy oracle; K1 also at ragged batch
-   sizes (1 pair, odd counts, not a multiple of a block's pairs, none) and
-   on adversarial pairs, against the twin, its 16-bit plain version and the
-   oracle;
+3. kernels: K1 (score) and the fused K2 + K3 (direction codes and
+   traceback in one launch) against their plain PyTorch twins on the card,
+   bit for bit, at the align step's shapes, and 256 pairs each against the
+   NumPy oracle; K1 also at ragged batch sizes (1 pair, odd counts, not a
+   multiple of a block's pairs, none) and on adversarial pairs, against the
+   twin, its 16-bit plain version and the oracle; K2 + K3 (score, end cell,
+   ref_col and its optional direction bytes) also at 8 and 128 rows, at 200
+   rows (8 rows a lane) and at ragged batch sizes;
 4. slice: `stream_align` over BASELINE config 2 (the "small" preset: 20
    species x 5 strains, 1,000,000 reads of 100 bp, batch 8192, sw_rows 104),
    with random data from a seed, every tensor on cuda:0;
-5. checks: every kernel launched in that run; the first 512 reads equal the
+5. checks: every kernel launched in that run, K2 + K3 once per batch with
+   gapped reads; the first 512 reads equal the
    NumPy oracle aligner; the first batch rerun on CPU tensors (the twins)
    equals the card's; the pileup accumulators count what was retained;
 6. timings: stream wall time and reads/s, one batch's time, the device's
    busy share and time by kernel (torch.profiler), and each kernel's time
-   beside its twin's at the path's shapes;
+   beside its twin's at the path's shapes (K2 + K3, at a batch's gapped
+   count and at 4,224 pairs, by CUDA events around a CUDA graph of its
+   launches, and by its device time in torch.profiler);
 7. bench kernels: every S1 variant at 131,072 x 128 x 161 and S2 at
    65,536 x 128 x 160 against their plain PyTorch versions on the card, bit
    for bit (S2's raw key included), and 256 pairs each against the NumPy
@@ -47,7 +52,8 @@ code is non-zero and no result line is printed:
    sw_rows 104) on 4 virtual ranks of cuda:0, 1,000,000 reads against the
    full-Greengenes-scale panel of config 3 (100,000 refs, seed 13, leaf per
    ref, 500 present); K4 (one launch a rank a rotation: batches x 8 x 4)
-   and K1-K3 must launch; every output equals the
+   and K1 and K2 + K3 must launch (K2 + K3 once a rank a batch with gapped
+   reads); every output equals the
    single-device stream bit for bit and the first 512 reads the NumPy
    oracle; then 4 batches of config 2 through the same mesh with
    shard_positions, against the single-device dense pileup;
@@ -94,9 +100,15 @@ INT32_LANES_PER_SM = 64
 # Instructions"); the table gives the DPX forms no rate of their own, so
 # they are taken at that of the min/max they extend.
 # In scalar 32-bit arithmetic it was 12 (E, F, diagonal and H take 3 each:
-# the Pallas cost estimate's count), kept for K2, which adds ~6 for its
-# direction code.
-OPS_PER_CELL, OPS_PER_CELL_32, OPS_PER_CELL_DIRS = 5.25, 12, 18
+# the Pallas cost estimate's count).
+# K2 + K3's sweep runs the same recurrence (its values fit 16 bits too, as
+# the kernel's packed (H, F) shuffle shows), so K1's 5.25 is its floor, plus
+# the direction code: five comparisons a cell (the H choice's three, E-open,
+# F-open) at two cells an instruction, 2.5, and 1.5 to fold their results
+# into the cell's 4 bits: 9.25 a cell. Earlier it was rated at 18 (12 plus ~6
+# for the code). Its walk spends ~10 a step.
+OPS_PER_CELL, OPS_PER_CELL_32 = 5.25, 12
+OPS_PER_CELL_DIRS, OPS_PER_CELL_DIRS_32 = 9.25, 18
 OPS_PER_TRACE_STEP = 10
 
 
@@ -220,6 +232,8 @@ def main() -> None:
     )
     from rambl_tpu_torch.utils.timing import (
         cuda_time,
+        graph_ms,
+        kernel_ms,
         median_spread,
         trial_times,
     )
@@ -241,11 +255,14 @@ def main() -> None:
             say(f"    ptxas: {name}: {regs}; {spill}")
             kernel_regs[name] = int(re.search(r"(\d+) registers",
                                               regs).group(1))
-            if (name.startswith(("sw_score_kernel", "ring_copy_kernel"))
+            if (name.startswith(("sw_score_kernel", "ring_copy_kernel",
+                                 "sw_align_traceback_kernel"))
                     and "0 bytes spill stores, 0 bytes spill loads"
                     not in (spill or "")):
                 raise AssertionError(f"{name} spills: {spill}")
-    for name in ("sw_score_kernel", "ring_copy_kernel"):
+    for name in ("sw_score_kernel", "ring_copy_kernel",
+                 "sw_align_traceback_kernel<4>",
+                 "sw_align_traceback_kernel<8>"):
         if name not in kernel_regs:
             raise AssertionError(f"no ptxas report for {name}")
 
@@ -253,7 +270,7 @@ def main() -> None:
     def on_card(*arrays):
         return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
 
-    err = {"score": 0, "align": 0, "traceback": 0}
+    err = {"score": 0, "align": 0}
     q_full, w_full = on_card(*planted_pairs(11, PAIRS, L, W))
     q_path, w_path = on_card(*short_reads(12, PAIRS, L, W, ROWS, min_len=60))
     for rows, q, w in ((0, q_full, w_full), (ROWS, q_full, w_full),
@@ -304,20 +321,41 @@ def main() -> None:
             raise AssertionError("K1: a read equal to its window must score "
                                  "its length, all mismatches 0")
 
+    def check_align(what, q, w, rows, Ls=L):
+        """K2 + K3 (main path: no dirs; tests': dirs) against the twins."""
+        nrows = rows or Ls
+        s_, ie_, je_, dirs_ = tsw.sw_align(q[:, :nrows], w, sc)
+        rc_ = tsw.sw_traceback(dirs_, ie_, je_, Ls, W)
+        got = sw_cuda.sw_align_traceback_cuda(q, w, sc, rows, Ls, W)
+        gd = sw_cuda.sw_align_cuda(q, w, sc, rows)
+        torch.cuda.synchronize()
+        return max(require_equal(f"K2+K3 {what}", got, (s_, ie_, je_, rc_)),
+                   require_equal(f"K2+K3 dirs {what}",
+                                 (*gd[:3], gd[3].permute(0, 2, 1)),
+                                 (s_, ie_, je_, dirs_))), got
+
     qg, wg = gapped_pairs(13, 4096, ROWS, W)
     qg = np.concatenate([qg, np.full((4096, L - ROWS), 4, np.int8)], axis=1)
     qg = np.concatenate([qg, np.full((128, L), 4, np.int8)])   # all-N block
     wg = np.concatenate([wg, np.full((128, W), 4, np.int8)])
     qg, wg = on_card(qg, wg)
-    s, ie, je, dirs = sw_cuda.sw_align_cuda(qg, wg, sc, ROWS)
-    ref = tsw.sw_align(qg[:, :ROWS], wg, sc)
-    err["align"] = require_equal(
-        "K2", (s, ie, je, dirs.permute(0, 2, 1)), ref)
-    rc = sw_cuda.sw_traceback_cuda(dirs, ie, je, L, W)
-    err["traceback"] = require_equal(
-        "K3", [rc], [tsw.sw_traceback(ref[3], ref[1], ref[2], L, W)])
-    if not ((s[-128:] == 0).all() and (rc[-128:] == -1).all()):
-        raise AssertionError("all-N pairs must score 0 and trace nothing")
+    # 26 lanes of 4 rows (the path), 2 lanes, 32 lanes
+    for rows in (ROWS, 8, 0):
+        e_, got = check_align(f"rows={rows}", qg, wg, rows)
+        err["align"] = max(err["align"], e_)
+        if rows == ROWS and not ((got[0][-128:] == 0).all()
+                                 and (got[3][-128:] == -1).all()):
+            raise AssertionError("all-N pairs must score 0 and trace nothing")
+    L8 = 200                    # 8 rows a lane: 25 lanes, 200 x 161 + 160 <
+    q8, w8 = gapped_pairs(18, 1024, L8, W)             # 32,768
+    q8[-16:], w8[-16:] = 4, 4
+    err["align"] = max(err["align"], check_align(
+        f"L={L8}", *on_card(q8, w8), 0, L8)[0])
+    ragged_tb = (1, 31, 33, 171)
+    for n_r in ragged_tb:
+        err["align"] = max(err["align"], check_align(
+            f"n={n_r}", qg[:n_r].contiguous(), wg[:n_r].contiguous(),
+            ROWS)[0])
     qo, wo = gapped_pairs(14, 256, L, W)
     _, _, _, rco = sw_cuda.sw_align_traceback_cuda(*on_card(qo, wo), sc, 0,
                                                    L, W)
@@ -328,8 +366,10 @@ def main() -> None:
     say(f"[3 kernels] K1 on {PAIRS} planted pairs at rows 0 and {ROWS} and "
         f"on {PAIRS} reads of <= {ROWS} bases at rows {ROWS}, on batches of "
         f"{ragged} and 0 pairs and on 160 adversarial pairs (also against its "
-        f"16-bit plain version), K2+K3 on 4224 gapped/all-N pairs: equal to "
-        f"the twin bit for bit; 256 pairs each equal to the NumPy oracle")
+        f"16-bit plain version); K2+K3 on 4224 gapped/all-N pairs at rows "
+        f"{ROWS}, 8 and {L}, on 1024 at L={L8} and on batches of {ragged_tb} "
+        f"pairs (score, end cell, ref_col and the optional dirs): equal to "
+        f"the twins bit for bit; 256 pairs each equal to the NumPy oracle")
 
     # ---- 4. the slice: stream_align over config 2 --------------------------
     from rambl_tpu_torch.data.simulate import simulate_dataset
@@ -383,7 +423,7 @@ def main() -> None:
     say(f"[4 slice] config 2: {N_READS} reads, {ds.ref_seqs.shape[0]} refs x "
         f"{ds.ref_seqs.shape[1]} cols, {tables.n_nodes} taxonomy nodes, "
         f"{n_batches} batches of {B}; host prep {host_s:.1f} s; stream "
-        f"{stream_s:.2f} s; launches {launches}; gapped reads to K2 "
+        f"{stream_s:.2f} s; launches {launches}; gapped reads to K2+K3 "
         f"{sum(gapped)} ({100 * sum(gapped) / N_READS:.2f}%); peak device "
         f"memory {peak_gb:.2f} GB")
 
@@ -391,6 +431,10 @@ def main() -> None:
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} never launched in the stream")
+    if launches["align"] != len(gapped):
+        raise AssertionError(f"K2+K3 launched {launches['align']} times, not "
+                             f"once for each of the {len(gapped)} batches "
+                             "with gapped reads")
     for k in RETAINED:
         if merged[k].shape[0] != N_READS:
             raise AssertionError(f"{k}: {tuple(merged[k].shape)} rows")
@@ -450,14 +494,25 @@ def main() -> None:
         tw = cuda_time(tsw.sw_score, q[:, :nrows], w, sc, iters=3)
         k1[nrows] = (ms, tw, PAIRS * nrows * W / (ms * 1e-3) / 1e9)
     n_tb = max(128, int(round(sum(gapped) / max(len(gapped), 1))))
+
+    def twin_tb(q, w):
+        s_, ie_, je_, dirs_ = tsw.sw_align(q[:, :ROWS], w, sc)
+        return tsw.sw_traceback(dirs_, ie_, je_, L, W)
+
+    # pairs: (CUDA events over a graph of 50 launches, median of 3; device
+    # time from torch.profiler; CUDA events around 20 calls, host gaps
+    # included, as K2 and K3 were timed before they were one launch; twins)
+    k23 = {}
+    for n_k in (n_tb, qg.shape[0]):
+        qt, wt = qg[:n_k].contiguous(), wg[:n_k].contiguous()
+        args = (qt, wt, sc, ROWS, L, W)
+        k23[n_k] = (
+            median_spread(graph_ms(sw_cuda.sw_align_traceback_cuda, *args))[0],
+            kernel_ms(sw_cuda.sw_align_traceback_cuda, *args,
+                      kernel="sw_align_traceback_kernel", iters=20),
+            cuda_time(sw_cuda.sw_align_traceback_cuda, *args, iters=20),
+            cuda_time(twin_tb, qt, wt, iters=3))
     qt, wt = qg[:n_tb].contiguous(), wg[:n_tb].contiguous()
-    k2_ms = cuda_time(sw_cuda.sw_align_cuda, qt, wt, sc, ROWS, iters=10)
-    k2_tw = cuda_time(tsw.sw_align, qt[:, :ROWS], wt, sc, iters=3)
-    _, tie, tje, tdirs = sw_cuda.sw_align_cuda(qt, wt, sc, ROWS)
-    k3_ms = cuda_time(sw_cuda.sw_traceback_cuda, tdirs, tie, tje, L, W,
-                      iters=10)
-    tdirs_twin = tdirs.permute(0, 2, 1)
-    k3_tw = cuda_time(tsw.sw_traceback, tdirs_twin, tie, tje, L, W, iters=3)
     # device busy share and kernel time by name over a 16-batch stream;
     # kernels and copies are the events with no host time of their own
     from torch.profiler import ProfilerActivity, profile
@@ -488,10 +543,13 @@ def main() -> None:
     for nrows, (ms, tw, gcups) in k1.items():
         say(f"    K1 sw_score, {PAIRS} pairs x {nrows} rows x {W} cols: "
             f"{ms:.3f} ms = {gcups:.1f} GCUPS; twin {tw:.3f} ms [{card}]")
-    say(f"    K2 sw_align, {n_tb} gapped pairs x {ROWS} rows: {k2_ms:.3f} ms;"
-        f" twin {k2_tw:.3f} ms [{card}]")
-    say(f"    K3 sw_traceback, {n_tb} pairs: {k3_ms:.3f} ms; twin "
-        f"{k3_tw:.3f} ms [{card}]")
+    for n_k, (ms, dev_ms, ev, tw) in k23.items():
+        say(f"    K2+K3 sw_align_traceback, {n_k} gapped pairs x {ROWS} rows "
+            f"x {W} cols: {ms:.4f} ms a launch (CUDA events over a CUDA "
+            f"graph of 50 launches); device time {dev_ms:.4f} ms "
+            f"(torch.profiler over 20); {ev:.4f} ms a call in CUDA events "
+            f"around 20 calls (host gaps included); twins sw_align + "
+            f"sw_traceback {tw:.3f} ms [{card}]")
 
     # ---- 7. S1 and S2 against their plain versions, bit for bit -----------
     from rambl_tpu_torch import bench as tbench
@@ -571,8 +629,7 @@ def main() -> None:
     sweep, sweep_n = counted(bench_sw_variants.run)
     say("[8 bench path] python -m rambl_tpu_torch.scripts.ablate_prep")
     abl, abl_n = counted(ablate_prep.run)
-    for what, n_run, keys in (("bench", bench_n, ("score", "align",
-                                                  "traceback")),
+    for what, n_run, keys in (("bench", bench_n, ("score", "align")),
                               ("bench_sw_variants", sweep_n,
                                ("score", "variant")),
                               ("ablate_prep", abl_n,
@@ -726,6 +783,8 @@ def main() -> None:
 
     run_mesh(2 * B4, mesh=mesh4, ring_shards=shards4)    # warm-up: 2 batches
     torch.cuda.synchronize()
+    gapped.clear()
+    talign.sw_align_traceback_cuda = counting_tb
     sw_cuda.reset_launches()
     ring_dma.reset_launches()
     t0 = time.perf_counter()
@@ -734,6 +793,11 @@ def main() -> None:
     torch.cuda.synchronize()
     mesh_s = time.perf_counter() - t0
     mesh_launches = {**sw_cuda.LAUNCHES, **ring_dma.LAUNCHES}
+    talign.sw_align_traceback_cuda = real_tb
+    if mesh_launches["align"] != len(gapped):
+        raise AssertionError(f"K2+K3 launched {mesh_launches['align']} times "
+                             f"in the mesh stream, not once for each of the "
+                             f"{len(gapped)} rank batches with gapped reads")
     for k, v in mesh_launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} never launched in the mesh "
@@ -913,16 +977,25 @@ def main() -> None:
 
     peak = int32_ops_per_s(dev)
     n_path = PAIRS
-    # K3 reads one direction byte a step of each pair's walk, and no others
-    k3_steps = int(tsw.sw_traceback(tdirs_twin, tie, tje, L, W,
+    # the walk reads one direction code a step, and no others
+    _, tie, tje, tdirs = tsw.sw_align(qt[:, :ROWS], wt, sc)
+    k3_steps = int(tsw.sw_traceback(tdirs, tie, tje, L, W,
                                     return_steps=True)[1].sum())
+    _, tie, tje, tdirs = tsw.sw_align(qg[:, :ROWS], wg, sc)
+    full_steps = int(tsw.sw_traceback(tdirs, tie, tje, L, W,
+                                      return_steps=True)[1].sum())
+    del tdirs
+
+    def k23_bound(n, steps, per_cell=OPS_PER_CELL_DIRS):
+        # q and w in, 12 B and the ref_col row out a pair; the direction
+        # codes stay on chip
+        return bound(per_cell * n * ROWS * W + OPS_PER_TRACE_STEP * steps,
+                     n * (L + W) + 12 * n + 4 * n * L, peak)
+
     bounds = {
         "K1": bound(OPS_PER_CELL * n_path * ROWS * W,
                     n_path * (L + W) + 12 * n_path, peak),
-        "K2": bound(OPS_PER_CELL_DIRS * n_tb * ROWS * W,
-                    n_tb * (L + W) + 12 * n_tb + tdirs.numel(), peak),
-        "K3": bound(OPS_PER_TRACE_STEP * k3_steps,
-                    k3_steps + 8 * n_tb + 4 * n_tb * L, peak),
+        "K2+K3": k23_bound(n_tb, k3_steps),
         "S1": bound(OPS_PER_CELL * P1 * L1 * W1, P1 * (L1 + W1) + 12 * P1,
                     peak),
         "S2": bound(OPS_PER_CELL * P2 * L2 * W2, 4 * P2 * (L2 + W2 + 1), peak),
@@ -937,9 +1010,16 @@ def main() -> None:
         f"at the {OPS_PER_CELL_32} of scalar 32-bit arithmetic K1's bound "
         f"would be "
         f"{bound(OPS_PER_CELL_32 * n_path * ROWS * W, 0, peak)[0]:.4f} ms) "
-        f"(K3: {k3_steps} walk steps over {n_tb} pairs): " + ", ".join(
-            f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in bounds.items())
-        + f" [{card}]")
+        f"(K2+K3: {n_tb} pairs, {k3_steps} walk steps, {OPS_PER_CELL_DIRS} "
+        f"operations a cell; at {OPS_PER_CELL_DIRS_32} "
+        f"{k23_bound(n_tb, k3_steps, OPS_PER_CELL_DIRS_32)[0]:.4f} ms): "
+        + ", ".join(f"{k} {ms:.4f} ms ({by})"
+                    for k, (ms, by) in bounds.items())
+        + f"; K2+K3 at {qg.shape[0]} pairs ({full_steps} walk steps) "
+        f"{k23_bound(qg.shape[0], full_steps)[0]:.4f} ms (at "
+        f"{OPS_PER_CELL_DIRS_32}: "
+        f"{k23_bound(qg.shape[0], full_steps, OPS_PER_CELL_DIRS_32)[0]:.4f}),"
+        f" timed {k23[qg.shape[0]][0]:.4f} ms [{card}]")
 
     src = "rambl_tpu_torch/csrc/sw.cu"
     src_v = "rambl_tpu_torch/csrc/sw_variants.cu"
@@ -954,10 +1034,12 @@ def main() -> None:
     kernels = [
         row("sw_score (K1)", src, "rambl_tpu/ops/sw_pallas.py:75",
             launches["score"], err["score"], k1[ROWS][0], k1[ROWS][1], "K1"),
-        row("sw_align (K2)", src, "rambl_tpu/ops/sw_pallas.py:150",
-            launches["align"], err["align"], k2_ms, k2_tw, "K2"),
-        row("sw_traceback (K3)", src, "rambl_tpu/ops/sw_pallas.py:317",
-            launches["traceback"], err["traceback"], k3_ms, k3_tw, "K3"),
+        {**row("sw_align_traceback (K2+K3)", src,
+               "rambl_tpu/ops/sw_pallas.py:150 and "
+               "rambl_tpu/ops/sw_pallas.py:317",
+               launches["align"], err["align"], k23[n_tb][0], k23[n_tb][3],
+               "K2+K3"),
+         "device_ms": k23[n_tb][1]},
         row(f"sw_variant_score (S1, {best_v})", src_v,
             "scripts/bench_sw_variants.py:48", sweep_n["variant"],
             err["variant"], sweep["results"][best_v]["ms"], s1_plain_ms, "S1"),

@@ -1,6 +1,6 @@
 // Smith-Waterman kernels for Hopper (sm_90a): the hot DP of the align step.
 //
-// Three kernels, each bit-identical to its plain PyTorch twin in
+// Two kernels, each bit-identical to its plain PyTorch twin in
 // rambl_tpu_torch/ops/sw.py (and so to rambl_tpu/ops/sw.py):
 //
 //   sw_score_kernel      replaces rambl_tpu/ops/sw_pallas.py::_score_kernel
@@ -9,14 +9,15 @@
 //                        16-bit DPX arithmetic on staged q and w tiles, a
 //                        pair's rows split over two lanes (K1's bound and
 //                        design, below).
-//   sw_align_kernel      replaces rambl_tpu/ops/sw_pallas.py::_align_kernel
-//                        (K2): the same DP in 32-bit arithmetic, also
-//                        writing a 4-bit direction code per cell (bits 0-1
-//                        the H choice with ties zero > diag > E > F, bit 2
-//                        E-open, bit 3 F-open; open wins ties with extend).
-//   sw_traceback_kernel  replaces rambl_tpu/ops/sw_pallas.py::
-//                        sw_traceback_packed (K3): walks the M/E/F state
-//                        machine back from the end cell into ref_col.
+//   sw_align_traceback_kernel
+//                        replaces sw_pallas.py::_align_kernel (K2) and
+//                        sw_pallas.py::sw_traceback_packed (K3) in one
+//                        launch: the same DP in 32-bit arithmetic with a
+//                        4-bit direction code a cell (bits 0-1 the H choice
+//                        with ties zero > diag > E > F, bit 2 E-open, bit 3
+//                        F-open; open wins ties with extend), kept in shared
+//                        memory, then the walk of the M/E/F state machine
+//                        back from the end cell into ref_col.
 //
 // K1's bound and design. The best cell is the one with the highest H, then
 // the lowest i, then the lowest j; (0, 0, 0) where no cell is positive.
@@ -65,42 +66,53 @@
 // gap_open + gap_extend < 16384), and the highest is the key, below 32768
 // (checked too), so nothing wraps.
 //
-// K2's design. One thread per pair. The DP sweeps window columns j = 1..W in
-// the outer loop and query rows i = 1..rows in the inner loop, so the state
-// kept between columns is one column of (H, E): rows + 1 words per thread in
-// shared memory, laid out [row][thread] so a warp touches 32 banks. F and the
-// H above are running scalars in registers. H <= rows * match < 2^15 and
-// E >= -(gap_open + gap_extend) once j >= 1, so H and E share one 32-bit word
-// (E in the high half); the E border of column 0, whose true value is
-// neg_inf, is stored as INT16_MIN, which loses to every open move exactly as
-// neg_inf does. The wrapper checks both bounds. The best cell is the running
-// maximum of the packed key H * 32768 - (i * (W + 1) + j) over cells with
-// H > 0, so the sweep order does not change which cell wins.
+// K2 + K3's bound and design. About 9.25 integer ops a cell (K1's 5.25 for
+// the recurrence, whose values fit 16 bits here too, and 4 for the direction
+// code) and 10 a step of the walk; in bytes, q and w in, 12 B a pair and
+// ref_col out: the codes never leave the SM. The align step sends it only
+// the gapped reads, ~171 pairs a batch, which cannot fill the card: it is
+// bound by the latency of a pair's chain of dependent cells, which a warp a
+// pair cuts 26 ways.
 //
-// K2's and K3's bound. About 18 integer ops and one direction byte written
-// per cell (K2), one direction byte read per step of a walk (K3). Both run
-// on the ~171 gapped pairs of a batch, two blocks in all, so neither fills
-// the card: they are bound by the latency of one thread's serial chain, each
-// thread reading its own q row from device memory (a warp's load touches 32
-// lines). A warp or a block per pair with q staged, and K3 fused into K2's
-// launch, are the next redesign.
-//
-// Direction layout (K2 -> K3): dirs[(i + j - 2), (i - 1), b] as bytes, shape
-// (rows + W - 1, rows, n): the reference's anti-diagonal layout with the
-// batch axis last, so a warp's writes are coalesced. Cells outside the
-// rectangle stay 0 (the wrapper zero-fills).
+// - A wavefront of strips. Lane l owns rows R*l + 1 .. R*l + R (R = 4 up to
+//   128 rows, 8 up to 256) and does column j at step j - 1 + l, W + lanes -
+//   1 steps. Lane l - 1 hands on H and F of its last row in one shuffle
+//   (both fit 16 bits: H < 2^15 and, below row 0, F >= -(gap_open +
+//   gap_extend)); H and E of the lane's rows at the previous column and its
+//   q codes stay in registers; the window's codes are staged in shared
+//   memory. E, F and H are one DPX instruction each (__viaddmax_s32,
+//   __vimax3_s32_relu), in 32-bit arithmetic. Borders as in the reference:
+//   row 0 has H = 0 and F = neg_inf, column 0 H = 0 and E = neg_inf.
+// - The best cell. Each lane keeps the running max of the key
+//   H * 32768 - (i * (W + 1) + j), which is > 0 iff H > 0 (a row past
+//   `rows` is keyed below 0); one __reduce_max_sync gives the pair's, and
+//   the sweep order cannot change which cell wins.
+// - The codes. A lane's R codes of a column are one word in shared memory,
+//   [column][lane] with the column stride padded (nib_stride) so that the
+//   skewed writes of a step meet in no bank: about rows x W / 2 bytes a
+//   pair (8,640 at 104 x 160).
+// - The walk. After __syncwarp the warp fills the first `rows` words of a
+//   ref_col row in shared memory with -1 (a walk reaches no row past them),
+//   lane 0 runs the state machine over the shared words, one load a step,
+//   storing j - 1 at i - 1 on each diagonal move, and the warp writes the
+//   row out once, -1 from `rows` to L.
+// - A block holds kAlignWarps = 4 pairs; a warp past n leaves at once, and
+//   nothing after that uses a block barrier.
+// - Optional dirs, for the tests: each cell's code also as a byte at
+//   dirs[(i + j - 2), (i - 1), b], shape (rows + W - 1, rows, n), the
+//   reference's anti-diagonal layout with the batch axis last. Cells outside
+//   the rectangle stay 0 (the wrapper zero-fills).
 //
 // C interface: every entry point launches on the given stream, allocates
 // nothing and returns cudaGetLastError().
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "sw_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;             // K2, K3: a thread a pair
 
 // ---- K1 --------------------------------------------------------------------
 
@@ -340,100 +352,211 @@ sw_score_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
     j_end[b] = h ? (int)(0xFFFFu - (best & 0xFFFFu)) : 0;
   }
 }
-// ---- K2, K3 ----------------------------------------------------------------
+// ---- K2 + K3 ---------------------------------------------------------------
 
-// One thread per pair; see the file comment. q rows are read four codes at a
-// time (rows and L are multiples of 4, checked by the wrapper).
-__global__ void __launch_bounds__(kThreads)
-sw_align_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
-                int32_t* __restrict__ score, int32_t* __restrict__ i_end,
-                int32_t* __restrict__ j_end, uint8_t* __restrict__ dirs,
-                int n, int L, int W, int rows, Scoring sc) {
-  extern __shared__ uint32_t col[];  // (rows + 1) x kThreads packed (H, E)
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x * kThreads + tid;
-  if (b >= n) return;  // no block-wide barrier below, so leaving is safe
+constexpr int kAlignWarps = 4;            // warps a block, a pair a warp
+constexpr int kNoMatch = 1 << 20;         // a q code >= 4: equals no w byte
+constexpr int kDeadRow = -(1 << 30);      // key base of a row past `rows`
 
-  const uint32_t* qb = reinterpret_cast<const uint32_t*>(q + (size_t)b * L);
-  const int8_t* wb = w + (size_t)b * W;
-  for (int i = 0; i <= rows; ++i) col[i * kThreads + tid] = pack_he(0, kEBorder);
+// Words in one column of a pair's direction buffer. A lane's R codes of a
+// column are one word (16 bits at R = 4, 32 at R = 8), and at step t lane l
+// writes word (t - l) * S + l = t * S - l * (S - 1). At R = 4, S = 3 mod 4:
+// S - 1 = 2k with k odd, so the lanes' 4-byte words t * S / 2 - k * l are 32
+// different banks; at R = 8, S is even and S - 1 odd, the same.
+__host__ __device__ __forceinline__ int nib_stride(int lanes, int R) {
+  return R == 4 ? (lanes | 3) : ((lanes + 1) & ~1);
+}
 
-  int best = kNone;
-  for (int j = 1; j <= W; ++j) {
-    const int wj = wb[j - 1];
-    int hdiag = 0;       // H(i - 1, j - 1); row 0 is the zero border
-    int hup = 0;         // H(i - 1, j)
-    int fup = sc.neg;    // F(i - 1, j); row 0 is neg_inf
-    for (int i0 = 0; i0 < rows; i0 += 4) {
-      const uint32_t q4 = __ldg(qb + (i0 >> 2));
+// One warp's shared memory: [the walk's ref_col row, `rows` words] [w
+// codes] [direction words, W columns x S], each 16-byte aligned.
+template <int R>
+struct AlignLayout {
+  using Word = typename std::conditional<R == 4, uint16_t, uint32_t>::type;
+  int S;
+  size_t row_bytes, w_bytes, nib_bytes;
+  __host__ __device__ AlignLayout(int rows, int W)
+      : S(nib_stride((rows + R - 1) / R, R)),
+        row_bytes(((size_t)rows * 4 + 15) & ~(size_t)15),
+        w_bytes(((size_t)W + 15) & ~(size_t)15),
+        nib_bytes(((size_t)W * S * sizeof(Word) + 15) & ~(size_t)15) {}
+  __host__ __device__ size_t warp_bytes() const {
+    return row_bytes + w_bytes + nib_bytes;
+  }
+};
+
+struct AlignArgs {
+  const int8_t* q;
+  const int8_t* w;
+  int32_t* score;
+  int32_t* i_end;
+  int32_t* j_end;
+  int32_t* ref_col;
+  uint8_t* dirs;       // null on the main path
+  int n, L, W, rows;
+  Scoring sc;
+};
+
+// A warp a pair (file comment). Lane l owns rows R*l + 1 .. R*l + R and
+// does column j at step t = j - 1 + l; it takes H and F of the row above its
+// strip at column j from lane l - 1, which did that column a step before,
+// and keeps that H for the next step's diagonal. H and E of its own rows at
+// the previous column stay in registers. The codes go to shared memory as
+// [column][lane] words; after the sweep lane 0 walks them into ref_col.
+template <int R>
+__global__ void __launch_bounds__(kAlignWarps * 32)
+sw_align_traceback_kernel(const AlignArgs a) {
+  using Lay = AlignLayout<R>;
+  using Word = typename Lay::Word;
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kAlignWarps + (threadIdx.x >> 5);
+  if (b >= a.n) return;  // a whole warp leaves; below only __syncwarp
+  const int rows = a.rows, L = a.L, W = a.W;
+  const Scoring sc = a.sc;
+  const Lay lay(rows, W);
+  const int lanes = (rows + R - 1) / R;
+  unsigned char* mine = smem + (threadIdx.x >> 5) * lay.warp_bytes();
+  int32_t* row = reinterpret_cast<int32_t*>(mine);
+  int8_t* ws = reinterpret_cast<int8_t*>(mine + lay.row_bytes);
+  Word* nibs = reinterpret_cast<Word*>(mine + lay.row_bytes + lay.w_bytes);
+
+  const int8_t* wb = a.w + (size_t)b * W;
+  for (int k = lane; k < W; k += 32) ws[k] = wb[k];
+  // my rows' q codes (four a load: rows and L are multiples of 4) and key
+  // bases -(i * (W + 1)); a row past `rows` matches nothing and never wins
+  int qc[R], kb[R];
+  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(a.q + (size_t)b * L);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = i0 + u + 1;
-        const int qi = static_cast<int8_t>((q4 >> (8 * u)) & 0xFFu);
-        const uint32_t left = col[i * kThreads + tid];
-        const int hleft = unpack_h(left);
-        const int e_open = hleft - sc.go_ge;
-        const int e_ext = unpack_e(left) - sc.ge;
-        const int e = max(e_open, e_ext);
-        const int f_open = hup - sc.go_ge;
-        const int f_ext = fup - sc.ge;
-        const int f = max(f_open, f_ext);
-        const int diag =
-            hdiag + ((qi == wj && qi < 4) ? sc.match : sc.mismatch);
-        const int h = max(max(diag, 0), max(e, f));
-        const int ch = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
-        const int nib =
-            ch | (e_open >= e_ext ? 4 : 0) | (f_open >= f_ext ? 8 : 0);
-        dirs[((size_t)(i + j - 2) * rows + (i - 1)) * n + b] =
-            static_cast<uint8_t>(nib);
-        if (h > 0) best = max(best, h * kTie - (i * (W + 1) + j));
-        col[i * kThreads + tid] = pack_he(h, e);
-        hdiag = hleft;
-        hup = h;
-        fup = f;
+  for (int k = 0; k < R / 4; ++k) {
+    const int r0 = lane * R + 4 * k;
+    const uint32_t v = r0 < rows ? __ldg(q32 + (r0 >> 2)) : 0x04040404u;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = static_cast<int8_t>((v >> (8 * u)) & 0xFFu);
+      const int i = r0 + u + 1;
+      qc[4 * k + u] = c < 4 ? c : kNoMatch;
+      kb[4 * k + u] = i <= rows ? -(i * (W + 1)) : kDeadRow;
+    }
+  }
+  int H[R], E[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    H[u] = 0;
+    E[u] = sc.neg;                        // column 0: neg_inf
+  }
+  int best = kNone;
+  uint32_t out = 0;      // (H, F) of my last row at my last column
+  int diag_in = 0;       // H of the row above my strip, a column back
+  __syncwarp();          // w staged
+  const int steps = W + lanes - 1;
+  for (int t = 0; t < steps; ++t) {
+    const uint32_t in = __shfl_up_sync(kFull, out, 1);
+    const int j = t - lane + 1;           // my column at this step
+    if (j < 1 || j > W) continue;         // the skew fills and drains
+    int hup = 0, fup = sc.neg, hdiag = 0; // row 0: the zero / neg_inf border
+    if (lane > 0) {
+      hup = unpack_h(in);
+      fup = unpack_e(in);
+      hdiag = diag_in;
+      diag_in = hup;
+    }
+    const int wj = ws[j - 1];
+    uint32_t nib = 0;
+    int colkey = kNone;
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      // Hopper's DPX forms: max(a + b, c) is one gap recurrence and
+      // max(a, b, c, 0) is H; open wins a tie with extend
+      const int e_open = H[u] - sc.go_ge;
+      const int f_open = hup - sc.go_ge;
+      const int diag = hdiag + (qc[u] == wj ? sc.match : sc.mismatch);
+      const int e = __viaddmax_s32(E[u], -sc.ge, e_open);
+      const int f = __viaddmax_s32(fup, -sc.ge, f_open);
+      const int h = __vimax3_s32_relu(diag, e, f);
+      const int ch = h == 0 ? 0 : (h == diag ? 1 : (h == e ? 2 : 3));
+      nib |= static_cast<uint32_t>(ch | (e == e_open ? 4 : 0) |
+                                   (f == f_open ? 8 : 0)) << (4 * u);
+      colkey = max(colkey, h * kTie + kb[u]);
+      hdiag = H[u];
+      H[u] = h;
+      E[u] = e;
+      hup = h;
+      fup = f;
+    }
+    out = pack_he(hup, fup);              // F >= -(gap_open + gap_extend)
+    best = max(best, colkey - j);         // H * kTie - (i * (W + 1) + j)
+    if (lane < lanes) nibs[(j - 1) * lay.S + lane] = static_cast<Word>(nib);
+    if (a.dirs) {
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = lane * R + u + 1;
+        if (i <= rows)
+          a.dirs[((size_t)(i + j - 2) * rows + (i - 1)) * a.n + b] =
+              static_cast<uint8_t>((nib >> (4 * u)) & 0xFu);
       }
     }
   }
-  decode_best(best, W, b, score, i_end, j_end);
+  // a key is > 0 iff its cell's H is
+  best = __reduce_max_sync(kFull, best);
+  int s = 0, ie = 0, je = 0;
+  if (best > 0) {
+    s = best / kTie + 1;
+    const int r = s * kTie - best;
+    ie = r / (W + 1);
+    je = r % (W + 1);
+  }
+  if (lane == 0) {
+    a.score[b] = s;
+    a.i_end[b] = ie;
+    a.j_end[b] = je;
+  }
+  for (int k = lane; k < rows; k += 32) row[k] = -1;
+  __syncwarp();  // every lane's codes and -1s before lane 0 reads and writes
+  if (lane == 0) {
+    // rambl_tpu/ops/sw.py::sw_traceback step for step: states 0 = M,
+    // 1 = E, 2 = F, 3 = done; at most rows + W + 2 steps
+    int i = ie, j = je;
+    int st = (i > 0 && j > 0) ? 0 : 3;
+    const int walk = rows + W + 2;
+    for (int k = 0; k < walk && st != 3; ++k) {
+      // st != 3 implies 1 <= i <= rows and 1 <= j <= W
+      const int p =
+          (nibs[(j - 1) * lay.S + (i - 1) / R] >> (4 * ((i - 1) % R))) & 0xF;
+      const int ch = p & 0x3;
+      const bool act_m = st == 0, act_e = st == 1, act_f = st == 2;
+      const bool m_diag = act_m && ch == 1;
+      if (m_diag) row[i - 1] = j - 1;
+      const int ni = i - (m_diag ? 1 : 0) - (act_f ? 1 : 0);
+      const int nj = j - (m_diag ? 1 : 0) - (act_e ? 1 : 0);
+      int nst = st;
+      if (act_m && ch == 0) nst = 3;
+      if (act_m && ch == 2) nst = 1;
+      if (act_m && ch == 3) nst = 2;
+      if (act_e) nst = ((p >> 2) & 1) ? 0 : 1;
+      if (act_f) nst = ((p >> 3) & 1) ? 0 : 2;
+      if (ni <= 0 || nj <= 0) nst = 3;
+      i = ni;
+      j = nj;
+      st = nst;
+    }
+  }
+  __syncwarp();
+  // the walk only reaches rows below `rows`: the rest of the row is -1
+  int32_t* ref = a.ref_col + (size_t)b * L;
+  for (int k = lane; k < L; k += 32) ref[k] = k < rows ? row[k] : -1;
 }
 
-// One thread per pair, following rambl_tpu/ops/sw.py::sw_traceback step for
-// step: states 0 = M, 1 = E, 2 = F, 3 = done; at most rows + W + 2 steps.
-__global__ void __launch_bounds__(kThreads)
-sw_traceback_kernel(const uint8_t* __restrict__ dirs,
-                    const int32_t* __restrict__ i_end,
-                    const int32_t* __restrict__ j_end,
-                    int32_t* __restrict__ ref_col, int n, int rows, int L,
-                    int W) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= n) return;
-  int32_t* out = ref_col + (size_t)b * L;
-  for (int k = 0; k < L; ++k) out[k] = -1;
-
-  int i = i_end[b];
-  int j = j_end[b];
-  int st = (i > 0 && j > 0) ? 0 : 3;
-  const int steps = rows + W + 2;
-  for (int t = 0; t < steps && st != 3; ++t) {
-    // st != 3 implies 1 <= i <= rows and 1 <= j <= W
-    const int p = dirs[((size_t)(i + j - 2) * rows + (i - 1)) * n + b];
-    const int ch = p & 0x3;
-    const bool act_m = st == 0, act_e = st == 1, act_f = st == 2;
-    const bool m_diag = act_m && ch == 1;
-    if (m_diag) out[i - 1] = j - 1;
-    const int ni = i - (m_diag ? 1 : 0) - (act_f ? 1 : 0);
-    const int nj = j - (m_diag ? 1 : 0) - (act_e ? 1 : 0);
-    int nst = st;
-    if (act_m && ch == 0) nst = 3;
-    if (act_m && ch == 2) nst = 1;
-    if (act_m && ch == 3) nst = 2;
-    if (act_e) nst = ((p >> 2) & 1) ? 0 : 1;
-    if (act_f) nst = ((p >> 3) & 1) ? 0 : 2;
-    if (ni <= 0 || nj <= 0) nst = 3;
-    i = ni;
-    j = nj;
-    st = nst;
-  }
+template <int R>
+int launch_align(const AlignArgs& a, cudaStream_t stream) {
+  const size_t smem = kAlignWarps * AlignLayout<R>(a.rows, a.W).warp_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_align_traceback_kernel<R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.n + kAlignWarps - 1) / kAlignWarps;
+  sw_align_traceback_kernel<R><<<blocks, kAlignWarps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -459,33 +582,24 @@ int rambl_sw_score(const void* q, const void* w, void* score, void* i_end,
   return (int)cudaGetLastError();
 }
 
+// K2 + K3: 4 rows a lane up to 128 rows, 8 up to 256 (the wrapper checks);
+// `dirs` may be null.
 int rambl_sw_align(const void* q, const void* w, void* score, void* i_end,
-                   void* j_end, void* dirs, int n, int L, int W, int rows,
-                   int match, int mismatch, int gap_open, int gap_extend,
-                   int neg, void* stream) {
-  const size_t smem = (size_t)(rows + 1) * kThreads * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      sw_align_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const Scoring sc{match, mismatch, gap_open + gap_extend, gap_extend, neg};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sw_align_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(score), static_cast<int32_t*>(i_end),
-      static_cast<int32_t*>(j_end), static_cast<uint8_t*>(dirs), n, L, W,
-      rows, sc);
-  return (int)cudaGetLastError();
-}
-
-int rambl_sw_traceback(const void* dirs, const void* i_end, const void* j_end,
-                       void* ref_col, int n, int rows, int L, int W,
-                       void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sw_traceback_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(dirs), static_cast<const int32_t*>(i_end),
-      static_cast<const int32_t*>(j_end), static_cast<int32_t*>(ref_col), n,
-      rows, L, W);
-  return (int)cudaGetLastError();
+                   void* j_end, void* ref_col, void* dirs, int n, int L,
+                   int W, int rows, int match, int mismatch, int gap_open,
+                   int gap_extend, int neg, void* stream) {
+  const AlignArgs a{static_cast<const int8_t*>(q),
+                    static_cast<const int8_t*>(w),
+                    static_cast<int32_t*>(score),
+                    static_cast<int32_t*>(i_end),
+                    static_cast<int32_t*>(j_end),
+                    static_cast<int32_t*>(ref_col),
+                    static_cast<uint8_t*>(dirs),
+                    n, L, W, rows,
+                    Scoring{match, mismatch, gap_open + gap_extend,
+                            gap_extend, neg}};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rows > 128 ? launch_align<8>(a, s) : launch_align<4>(a, s);
 }
 
 }  // extern "C"

@@ -19,6 +19,10 @@ The sweep runs over anti-diagonals d = i + j with the batch as the leading
 axis, so each step is a handful of (B, L) tensor ops. Direction bits use the
 reference layout: cell (i, j) of pair b sits at dirs[i + j - 2, b, i - 1].
 
+`sw_score_packed16` and `sw_align_traceback_lanes` are the CUDA kernels'
+schedules and arithmetic in plain PyTorch, step for step: no path of the
+port calls them; they pin the kernels' designs where there is no card.
+
 `sw_raw_key` is the one function with other rules: the TPU score kernel's
 raw output (`rambl_tpu/ops/sw_pallas.py::_score_kernel`, which the S2
 ablation times on its own): match iff q == w on the codes as given, and the
@@ -36,6 +40,8 @@ CH_ZERO, CH_DIAG, CH_E, CH_F = 0, 1, 2, 3
 TIE = 32768          # best-cell packing: key = H * TIE - (i * (W + 1) + j)
 NONE_KEY = -(1 << 30)
 BORDER16 = -16384    # neg_inf of the 16-bit arithmetic (`sw_score_packed16`)
+NO_MATCH = 1 << 20   # `sw_align_traceback_lanes`: a q code >= 4
+DEAD_ROW = -(1 << 30)  # and the key base of a row past `rows`
 
 
 def decode_best(best: torch.Tensor, W: int):
@@ -272,3 +278,133 @@ def sw_traceback(dirs: torch.Tensor, i_end: torch.Tensor, j_end: torch.Tensor,
         st = torch.where((ni <= 0) | (nj <= 0), 3, nst).to(torch.int32)
         i, j = ni, nj
     return (ref_col[:, :L], steps) if return_steps else ref_col[:, :L]
+
+
+def nib_stride(lanes: int, rows_per_lane: int) -> int:
+    """Words in one column of the fused align kernel's direction buffer
+    (`csrc/sw.cu::nib_stride`). A lane's codes of a column are one word (16
+    bits at 4 rows a lane, 32 at 8), and at step t lane l writes word
+    (t - l) * S + l; S is padded so that those 32 writes meet in no bank."""
+    return lanes | 3 if rows_per_lane == 4 else (lanes + 1) & ~1
+
+
+def _pack_hf(h: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """(H, F) in one 32-bit word as the kernel's shuffle carries them: F in
+    the high half, H in the low (int64 holding the word's bits)."""
+    return ((f.long() & 0xFFFF) << 16) | (h.long() & 0xFFFF)
+
+
+def _unpack_hf(v: torch.Tensor):
+    f = ((v >> 16) + 0x8000 & 0xFFFF) - 0x8000    # sign-extend the high half
+    return (v & 0xFFFF).to(torch.int32), f.to(torch.int32)
+
+
+def sw_align_traceback_lanes(q: torch.Tensor, w: torch.Tensor,
+                             sc: ScoringParams, rows_per_lane: int,
+                             L: int = 0):
+    """`sw_align` then `sw_traceback` in the schedule of the fused CUDA
+    kernel (`csrc/sw.cu::sw_align_traceback_kernel`), step for step, batched
+    over pairs. q (B, rows) int8 swept rows, w (B, W) int8 -> (score, i_end,
+    j_end, ref_col (B, L or rows) int32). Bit-identical to the twins; the
+    tests hold it to that. Nothing on the card's path calls it.
+
+    - Lane l of a pair's warp owns rows R*l + 1 .. R*l + R (R =
+      rows_per_lane, 4 or 8) and does column j at step t = j - 1 + l. It
+      takes H and F of the row above its strip at column j from lane l - 1
+      (which did that column at step t - 1) packed in one 32-bit word, and
+      keeps that H as the next step's diagonal; row 0 and column 0 are the
+      reference's borders.
+    - Each cell's 4-bit code goes into the pair's buffer of words, [column]
+      [lane] with the column stride `nib_stride`.
+    - Each lane keeps the running max of H * TIE - (i * (W + 1) + j), a
+      row past `rows` keyed below 0; the pair's best is their max.
+    - The walk reads the buffer (sw_traceback's state machine).
+    """
+    B, rows = q.shape
+    W = w.shape[1]
+    R = rows_per_lane
+    if R not in (4, 8) or not 0 < rows <= 32 * R:
+        raise ValueError(f"rows={rows} at {R} rows a lane does not fit a warp")
+    lanes = -(-rows // R)
+    S = nib_stride(lanes, R)
+    dev = q.device
+    i32 = torch.int32
+    go_ge, ge, NEG = sc.gap_open + sc.gap_extend, sc.gap_extend, sc.neg_inf
+
+    qc = torch.full((B, lanes * R), NO_MATCH, dtype=i32, device=dev)
+    qc[:, :rows] = torch.where(q < 4, q.to(i32), NO_MATCH)
+    qc = qc.view(B, lanes, R)
+    ii = torch.arange(1, lanes * R + 1, dtype=i32, device=dev).view(lanes, R)
+    kb = torch.where(ii <= rows, -ii * (W + 1), DEAD_ROW)
+    lane = torch.arange(lanes, device=dev)
+    H = [torch.zeros((B, lanes), dtype=i32, device=dev) for _ in range(R)]
+    E = [torch.full((B, lanes), NEG, dtype=i32, device=dev) for _ in range(R)]
+    best = torch.full((B, lanes), NONE_KEY, dtype=i32, device=dev)
+    out = torch.zeros((B, lanes), dtype=torch.int64, device=dev)
+    diag_in = torch.zeros((B, lanes), dtype=i32, device=dev)
+    # the buffer, and one slot past it where the lanes outside 1 <= j <= W
+    # write nothing (the kernel's skip)
+    nibs = torch.zeros((B, W * S + 1), dtype=torch.int64, device=dev)
+    wi = w.to(i32)
+    for t in range(W + lanes - 1):
+        j = (t - lane + 1).to(i32)                       # (lanes,)
+        act = (j >= 1) & (j <= W)
+        # lane l - 1's word, shuffled up one lane; lane 0 takes the border
+        hup, fup = _unpack_hf(torch.roll(out, 1, dims=1))
+        hdiag = diag_in.clone()
+        hup[:, 0], fup[:, 0], hdiag[:, 0] = 0, NEG, 0
+        diag_in = torch.where(act & (lane > 0), hup, diag_in)
+        wj = wi[:, torch.clamp(j - 1, 0, W - 1)]
+        nib = torch.zeros((B, lanes), dtype=torch.int64, device=dev)
+        colkey = torch.full((B, lanes), NONE_KEY, dtype=i32, device=dev)
+        for u in range(R):
+            e_open, e_ext = H[u] - go_ge, E[u] - ge
+            f_open, f_ext = hup - go_ge, fup - ge
+            e = torch.maximum(e_open, e_ext)
+            f = torch.maximum(f_open, f_ext)
+            diag = hdiag + torch.where(qc[:, :, u] == wj, sc.match,
+                                       sc.mismatch)
+            h = torch.clamp(torch.maximum(diag, torch.maximum(e, f)), min=0)
+            ch = torch.where(h == 0, CH_ZERO, torch.where(
+                h == diag, CH_DIAG, torch.where(h == e, CH_E, CH_F)))
+            code = (ch | ((e_open >= e_ext).to(i32) << 2)
+                    | ((f_open >= f_ext).to(i32) << 3))
+            nib |= code.long() << (4 * u)
+            colkey = torch.maximum(colkey, h * TIE + kb[:, u])
+            hdiag = H[u]
+            H[u] = torch.where(act, h, H[u])
+            E[u] = torch.where(act, e, E[u])
+            hup, fup = h, f
+        out = torch.where(act, _pack_hf(hup, fup), out)
+        best = torch.where(act, torch.maximum(best, colkey - j), best)
+        at = torch.where(act, (j - 1) * S + lane, W * S).expand(B, lanes)
+        nibs.scatter_(1, at, nib)
+    best = best.amax(dim=1)                              # __reduce_max_sync
+    score, i_end, j_end = decode_best(best, W)
+
+    # the walk: sw_traceback's state machine over the buffer
+    L = L or rows
+    bidx = torch.arange(B, device=dev)
+    i, j = i_end.clone(), j_end.clone()
+    st = torch.where((i > 0) & (j > 0), 0, 3).to(i32)
+    ref_col = torch.full((B, L + 1), -1, dtype=i32, device=dev)
+    for _ in range(rows + W + 2):
+        if not bool((st != 3).any()):
+            break
+        r = torch.clamp(i - 1, min=0)
+        word = nibs[bidx, torch.clamp(j - 1, min=0).long() * S + r // R]
+        p = ((word >> (4 * (r % R))) & 0xF).to(i32)
+        ch = p & 0x3
+        act_m, act_e, act_f = st == 0, st == 1, st == 2
+        m_diag = act_m & (ch == CH_DIAG)
+        ref_col[bidx, torch.where(m_diag, i - 1, L).long()] = j - 1
+        ni = i - m_diag.to(i32) - act_f.to(i32)
+        nj = j - m_diag.to(i32) - act_e.to(i32)
+        nst = torch.where(act_m & (ch == CH_ZERO), 3, st)
+        nst = torch.where(act_m & (ch == CH_E), 1, nst)
+        nst = torch.where(act_m & (ch == CH_F), 2, nst)
+        nst = torch.where(act_e, torch.where((p >> 2) & 1 == 1, 0, 1), nst)
+        nst = torch.where(act_f, torch.where((p >> 3) & 1 == 1, 0, 2), nst)
+        st = torch.where((ni <= 0) | (nj <= 0), 3, nst).to(i32)
+        i, j = ni, nj
+    return score, i_end, j_end, ref_col[:, :L]

@@ -4,18 +4,22 @@
   _score_kernel`) on every (query, window) pair of a batch: two pairs a
   thread in packed 16-bit DPX arithmetic on q and w tiles staged in shared
   memory;
-- `sw_align_cuda` runs K2 (replaces `sw_pallas.py::_align_kernel`): the
-  same DP in 32-bit arithmetic, one thread a pair, plus one direction byte
-  per cell;
-- `sw_traceback_cuda` runs K3 (replaces `sw_pallas.py::
-  sw_traceback_packed`) over K2's bytes;
-- `sw_align_traceback_cuda` is K2 then K3, as the align step calls them.
+- `sw_align_traceback_cuda` runs K2 + K3 in one launch (replaces
+  `sw_pallas.py::_align_kernel` and `sw_pallas.py::sw_traceback_packed`):
+  the same DP in 32-bit arithmetic, a warp a pair with the rows across its
+  lanes, the direction codes kept in shared memory and walked there into
+  ref_col, as the align step calls it;
+- `sw_align_cuda` launches the same kernel with its optional output on: every
+  cell's direction code as a byte, for the tests (`ops.sw.sw_align`'s
+  dirs).
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back. On CPU tensors it runs the plain PyTorch twin from `ops.sw`, which is
 what the CPU tests exercise (`python -m pytest tests/test_torch_sw.py`; they
 also hold K1's 16-bit arithmetic, `ops.sw.sw_score_packed16`, against the
-twin and the JAX package). `LAUNCHES` counts kernel launches, one per
+twin and the JAX package; tests/test_torch_sw_align_lanes.py holds the
+fused kernel's schedule, `ops.sw.sw_align_traceback_lanes`, against the
+twins and the JAX package). `LAUNCHES` counts kernel launches, one per
 launch and nowhere else, so a run can show that it went through the kernels.
 The kernels themselves are held against the twins on a card by
 `python -m pytest --noconftest tests/test_torch_kernels_cuda.py` and by
@@ -46,7 +50,9 @@ import torch
 from rambl_tpu_torch.config import ScoringParams
 from rambl_tpu_torch.ops import sw as _twin
 
-LAUNCHES = {"score": 0, "align": 0, "traceback": 0}
+LAUNCHES = {"score": 0, "align": 0}
+#: the fused kernel takes at most 32 lanes x 8 rows
+MAX_ALIGN_ROWS = 256
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -137,8 +143,7 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_library())
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.rambl_sw_score.argtypes = [P] * 5 + [I] * 9 + [P]
-            lib.rambl_sw_align.argtypes = [P] * 6 + [I] * 9 + [P]
-            lib.rambl_sw_traceback.argtypes = [P] * 4 + [I] * 4 + [P]
+            lib.rambl_sw_align.argtypes = [P] * 7 + [I] * 9 + [P]
             lib.rambl_sw_variant_score.argtypes = [P] * 5 + [I] * 11 + [P]
             lib.rambl_sw_pretransposed.argtypes = [P] * 3 + [I] * 8 + [P]
             # K4 (csrc/ring.cu, wrapped by parallel.ring_dma)
@@ -149,7 +154,7 @@ def load_library() -> ctypes.CDLL:
             lib.rambl_ring_layout.argtypes = [P, P, P]
             lib.rambl_ring_layout.restype = None
             for fn in (lib.rambl_sw_score, lib.rambl_sw_align,
-                       lib.rambl_sw_traceback, lib.rambl_sw_variant_score,
+                       lib.rambl_sw_variant_score,
                        lib.rambl_sw_pretransposed, lib.rambl_ring_copy,
                        lib.rambl_ring_wait, lib.rambl_ring_barrier,
                        lib.rambl_ring_enable_peer):
@@ -256,65 +261,60 @@ def sw_score_cuda(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams,
     return tuple(out)
 
 
+def _align_launch(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams,
+                  rows: int, dirs: torch.Tensor | None):
+    """One launch of the fused K2 + K3 kernel on checked card tensors ->
+    (score, i_end, j_end, ref_col (n, L) int32). `dirs`, when given, is a
+    zeroed (rows + W - 1, rows, n) uint8 buffer that also receives every
+    cell's code."""
+    _check_pair_cuda(q, w, rows, sc)
+    if rows > MAX_ALIGN_ROWS:
+        raise ValueError(f"rows={rows} exceeds the align kernel's "
+                         f"{MAX_ALIGN_ROWS} (32 lanes x 8 rows)")
+    n, L = q.shape
+    out = [torch.empty((n,), dtype=torch.int32, device=q.device)
+           for _ in range(3)]
+    ref_col = torch.empty((n, L), dtype=torch.int32, device=q.device)
+    if n:
+        with torch.cuda.device(q.device):
+            rc = load_library().rambl_sw_align(
+                q.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in out),
+                ref_col.data_ptr(), 0 if dirs is None else dirs.data_ptr(),
+                n, L, w.shape[1], rows, *_scoring_args(sc), _stream(q))
+        _raise_on(rc, "sw_align_traceback")
+        LAUNCHES["align"] += 1
+    return (*out, ref_col)
+
+
 def sw_align_cuda(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams,
                   rows: int = 0):
-    """K2. -> (score, i_end, j_end, dirs) with dirs (rows + W - 1, rows, n)
-    uint8: the twin's anti-diagonal layout with the batch axis last
-    (`dirs.permute(0, 2, 1)` is `ops.sw.sw_align`'s dirs)."""
+    """The fused K2 + K3 kernel with its direction output on -> (score,
+    i_end, j_end, dirs) with dirs (rows + W - 1, rows, n) uint8: the twin's
+    anti-diagonal layout with the batch axis last (`dirs.permute(0, 2, 1)`
+    is `ops.sw.sw_align`'s dirs). For the tests: the align step calls
+    `sw_align_traceback_cuda`, which writes no dirs."""
     L, W = q.shape[1], w.shape[1]
     rows = _rows(rows, L)
     _check_key(rows, W)
     if _on_cpu(q, w):
         s, ie, je, dirs = _twin.sw_align(q[:, :rows], w, sc)
         return s, ie, je, dirs.permute(0, 2, 1).contiguous()
-    _check_pair_cuda(q, w, rows, sc)
-    n = q.shape[0]
-    out = [torch.empty((n,), dtype=torch.int32, device=q.device)
-           for _ in range(3)]
-    dirs = torch.zeros((rows + W - 1, rows, n), dtype=torch.uint8,
+    dirs = torch.zeros((rows + W - 1, rows, q.shape[0]), dtype=torch.uint8,
                        device=q.device)
-    if n:
-        with torch.cuda.device(q.device):
-            rc = load_library().rambl_sw_align(
-                q.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in out),
-                dirs.data_ptr(), n, L, W, rows, *_scoring_args(sc),
-                _stream(q))
-        _raise_on(rc, "sw_align")
-        LAUNCHES["align"] += 1
-    return (*out, dirs)
-
-
-def sw_traceback_cuda(dirs: torch.Tensor, i_end: torch.Tensor,
-                      j_end: torch.Tensor, L: int, W: int) -> torch.Tensor:
-    """K3. dirs from `sw_align_cuda`, (n,) int32 end cells -> ref_col (n, L)
-    int32 (window column per query position, -1 where there is none)."""
-    D, rows, n = dirs.shape
-    if D != rows + W - 1 or rows > L:
-        raise ValueError(f"dirs shape {tuple(dirs.shape)} does not fit "
-                         f"L={L}, W={W}")
-    if _on_cpu(dirs, i_end, j_end):
-        return _twin.sw_traceback(dirs.permute(0, 2, 1), i_end, j_end, L, W)
-    if dirs.dtype != torch.uint8 or not dirs.is_contiguous():
-        raise ValueError("dirs must be contiguous uint8")
-    for name, t in (("i_end", i_end), ("j_end", j_end)):
-        if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({n},) int32 tensor")
-    ref_col = torch.empty((n, L), dtype=torch.int32, device=dirs.device)
-    if n:
-        with torch.cuda.device(dirs.device):
-            rc = load_library().rambl_sw_traceback(
-                dirs.data_ptr(), i_end.data_ptr(), j_end.data_ptr(),
-                ref_col.data_ptr(), n, rows, L, W, _stream(dirs))
-        _raise_on(rc, "sw_traceback")
-        LAUNCHES["traceback"] += 1
-    return ref_col
+    return (*_align_launch(q, w, sc, rows, dirs)[:3], dirs)
 
 
 def sw_align_traceback_cuda(q: torch.Tensor, w: torch.Tensor,
                             sc: ScoringParams, rows: int, L: int, W: int):
-    """K2 then K3 -> (score, i_end, j_end, ref_col (n, L) int32)."""
+    """K2 + K3 in one launch -> (score, i_end, j_end, ref_col (n, L) int32):
+    the window column of each query position on a diagonal move of the
+    traceback, -1 elsewhere."""
     if q.shape[1] != L or w.shape[1] != W:
         raise ValueError(f"q/w shapes {tuple(q.shape)}/{tuple(w.shape)} "
                          f"do not match L={L}, W={W}")
-    s, ie, je, dirs = sw_align_cuda(q, w, sc, rows)
-    return s, ie, je, sw_traceback_cuda(dirs, ie, je, L, W)
+    rows = _rows(rows, L)
+    _check_key(rows, W)
+    if _on_cpu(q, w):
+        s, ie, je, dirs = _twin.sw_align(q[:, :rows], w, sc)
+        return s, ie, je, _twin.sw_traceback(dirs, ie, je, L, W)
+    return _align_launch(q, w, sc, rows, None)

@@ -5,7 +5,9 @@ synchronize measures the enqueue. `trial_times` brackets each trial of
 `iters` calls with two CUDA events on the current stream after `warmup`
 calls, and gives the bench entry points one number per trial. `cuda_time` is
 one such trial, and fails on a machine without a card rather than timing the
-CPU.
+CPU. A kernel shorter than the host's time to launch it needs more: its
+launches go into one CUDA graph, timed by the same events (`graph_ms`), or
+torch.profiler reads its device time (`kernel_ms`).
 """
 
 from __future__ import annotations
@@ -64,3 +66,57 @@ def median_spread(times: list[float]) -> tuple[float, float]:
     ts = sorted(times)
     med = ts[len(ts) // 2]
     return med, 100.0 * (ts[-1] - ts[0]) / med
+
+
+def kernel_ms(fn, *args, kernel: str, iters: int = 20,
+              warmup: int = 2) -> float:
+    """Device milliseconds per call of fn(*args) spent in the kernels whose
+    name holds `kernel`, from torch.profiler over `iters` calls: a kernel's
+    own time, without the host's gaps between launches, which CUDA events
+    around a short kernel would count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    require_cuda()
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and e.self_device_time_total > 0]
+    if not hits:
+        raise AssertionError(f"the profiler saw no kernel named {kernel}")
+    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+
+
+def graph_ms(fn, *args, iters: int = 50, trials: int = 3) -> list[float]:
+    """Milliseconds per call of fn(*args), one number per trial: CUDA
+    events around a replay of one CUDA graph that holds `iters` calls. The
+    launches of a graph follow each other on the card with no host work
+    between them, so a kernel shorter than the host's launch time is timed
+    as the card runs it back to back, on the same clock as `cuda_time`."""
+    dev = require_cuda()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn(*args)                       # build and allocate outside the graph
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(*args)
+    graph.replay()                      # warm
+    out = []
+    for _ in range(trials):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize(dev)
+        out.append(start.elapsed_time(end) / iters)
+    return out

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels == their plain PyTorch versions, on the
-card: K1-K3 (`ops.sw_cuda`), the bench kernels S1 (every variant) and S2
-(`ops.sw_variants`), and K4, the ring rotation (`parallel.ring_dma`), on
-virtual ranks of one card.
+card: K1 and the fused K2 + K3 (`ops.sw_cuda`), the bench kernels S1 (every
+variant) and S2 (`ops.sw_variants`), and K4, the ring rotation
+(`parallel.ring_dma`), on virtual ranks of one card.
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test here skips with a reason
 elsewhere. The file imports no jax, so it also runs on a machine without it:
@@ -135,20 +135,58 @@ def test_score_kernel_matches_oracle(dev):
         np.testing.assert_array_equal(r, g.cpu().numpy())
 
 
-def test_align_traceback_kernels_match_twin(dev):
-    q, w = gapped_pairs(2, 1024, ROWS, W)
-    q = np.concatenate([q, np.full((1024, L - ROWS), 4, np.int8)], axis=1)
-    q = np.concatenate([q, np.full((128, L), 4, np.int8)])     # all-N block
-    w = np.concatenate([w, np.full((128, W), 4, np.int8)])
+#: (L, W, rows) of the fused K2 + K3 kernel: 26 lanes of 4 rows at the
+#: path's 104, 2 at 8, 32 at 128, R = 8 from 129 rows (200: 25 lanes; 132:
+#: a last lane of 4 live rows)
+ALIGN_SHAPES = [(L, W, 0), (L, W, 8), (L, W, ROWS), (136, W, 128),
+                (200, W, 0), (132, W, 0), (136, W, 136)]
+
+
+def _gapped_with_all_n(seed, n, Ls, Ws):
+    q, w = gapped_pairs(seed, n, Ls, Ws)
+    q[-16:], w[-16:] = 4, 4                      # all-N pairs: nothing traced
+    return q, w
+
+
+def _align_twin(qt, wt, rows, Ls, Ws):
+    s, ie, je, dirs = tsw.sw_align(qt[:, :rows], wt, SC)
+    return s, ie, je, tsw.sw_traceback(dirs, ie, je, Ls, Ws), dirs
+
+
+@pytest.mark.parametrize("Ls,Ws,rows", ALIGN_SHAPES)
+def test_align_traceback_kernels_match_twin(dev, Ls, Ws, rows):
+    # one launch each: the main path's (no dirs) and the tests' (every
+    # cell's code as a byte, also against the twin's dirs)
+    q, w = _gapped_with_all_n(2, 1024 + 5, Ls, Ws)
     qt, wt = _on(dev, q, w)
-    s, ie, je, dirs = sw_cuda.sw_align_cuda(qt, wt, SC, ROWS)
-    ref = tsw.sw_align(qt[:, :ROWS], wt, SC)
-    _equal((s, ie, je, dirs.permute(0, 2, 1)), ref)
-    rc = sw_cuda.sw_traceback_cuda(dirs, ie, je, L, W)
-    _equal([rc], [tsw.sw_traceback(ref[3], ref[1], ref[2], L, W)])
-    assert (s[-128:] == 0).all() and (rc[-128:] == -1).all()
-    got = sw_cuda.sw_align_traceback_cuda(qt, wt, SC, ROWS, L, W)
+    nrows = rows or Ls
+    s, ie, je, rc, dirs = _align_twin(qt, wt, nrows, Ls, Ws)
+    before = sw_cuda.LAUNCHES["align"]
+    got = sw_cuda.sw_align_traceback_cuda(qt, wt, SC, rows, Ls, Ws)
+    torch.cuda.synchronize()
+    assert sw_cuda.LAUNCHES["align"] == before + 1
     _equal(got, (s, ie, je, rc))
+    assert (got[0][-16:] == 0).all() and (got[3][-16:] == -1).all()
+    gs, gie, gje, gdirs = sw_cuda.sw_align_cuda(qt, wt, SC, rows)
+    _equal((gs, gie, gje, gdirs.permute(0, 2, 1)), (s, ie, je, dirs))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 31, 33, 171])
+def test_align_traceback_kernel_ragged_sizes(dev, n):
+    # n not a multiple of a block's warps: the warps past n leave
+    q, w = short_reads(n, n, L, W, ROWS, min_len=40)
+    qt, wt = _on(dev, q, w)
+    got = sw_cuda.sw_align_traceback_cuda(qt, wt, SC, ROWS, L, W)
+    _equal(got, _align_twin(qt, wt, ROWS, L, W)[:4])
+
+
+def test_align_traceback_kernel_empty_batch_launches_nothing(dev):
+    q = torch.zeros((0, L), dtype=torch.int8, device=dev)
+    w = torch.zeros((0, W), dtype=torch.int8, device=dev)
+    before = sw_cuda.LAUNCHES["align"]
+    got = sw_cuda.sw_align_traceback_cuda(q, w, SC, ROWS, L, W)
+    assert sw_cuda.LAUNCHES["align"] == before
+    assert [tuple(g.shape) for g in got] == [(0,), (0,), (0,), (0, L)]
 
 
 def test_traceback_kernel_matches_oracle(dev):
@@ -169,9 +207,18 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
         sw_cuda.sw_score_cuda(q, w.cpu(), SC)
     with pytest.raises(ValueError, match="multiples of 4"):
         sw_cuda.sw_score_cuda(q[:, :126].contiguous(), w, SC)
-    _, ie, je, dirs = sw_cuda.sw_align_cuda(q, w, SC)
-    with pytest.raises(ValueError, match="int32"):
-        sw_cuda.sw_traceback_cuda(dirs, ie.long(), je, L, W)
+    with pytest.raises(ValueError, match="int8"):
+        sw_cuda.sw_align_traceback_cuda(q.long(), w, SC, ROWS, L, W)
+    with pytest.raises(ValueError, match="different devices"):
+        sw_cuda.sw_align_traceback_cuda(q, w.cpu(), SC, ROWS, L, W)
+    with pytest.raises(ValueError, match="do not match"):
+        sw_cuda.sw_align_traceback_cuda(q, w, SC, ROWS, L, W + 1)
+    # 264 rows pass the key check at W = 16 but exceed 32 lanes x 8 rows
+    q2, w2 = _on(dev, *planted_pairs(5, 8, 264, 16))
+    with pytest.raises(ValueError, match="exceeds the align kernel"):
+        sw_cuda.sw_align_traceback_cuda(q2, w2, SC, 0, 264, 16)
+    with pytest.raises(ValueError, match="exceeds the align kernel"):
+        sw_cuda.sw_align_cuda(q2, w2, SC)
 
 
 S1_L, S1_W = 128, 161                # the S1 sweep's shapes (odd W)
