@@ -32,15 +32,19 @@ code is non-zero and no result line is printed:
    busy share and time by kernel (torch.profiler), and each kernel's time
    beside its twin's at the path's shapes (K2 + K3, at a batch's gapped
    count and at 4,224 pairs, by CUDA events around a CUDA graph of its
-   launches, and by its device time in torch.profiler);
-7. bench kernels: every S1 variant at 131,072 x 128 x 161 and S2 at
-   65,536 x 128 x 160 against their plain PyTorch versions on the card, bit
-   for bit (S2's raw key included), and 256 pairs each against the NumPy
-   oracle; each S1 variant's resident blocks per SM;
+   launches, and by its device time in torch.profiler); the host syncs a
+   stream batch (`stream_syncs`: set_sync_debug_mode("warn"));
+7. bench kernels: every S1 variant (instances of the strip kernel) at
+   131,072 x 128 x 161 and S2 at 65,536 x 128 x 160 against their plain
+   PyTorch versions on the card, bit for bit (S2's raw key included, also
+   on codes outside 0..126), and 256 pairs each against the NumPy oracle;
+   each variant's resident blocks per SM; S2's byte and 32-bit compare
+   paths timed at full size;
 8. bench path: `rambl_tpu_torch.bench`, `scripts.bench_sw_variants` and
    `scripts.ablate_prep` once each at their documented sizes, the launch
    counts set to 0 before each and read after it; each kernel of the path
-   must have launched;
+   must have launched; S1's best variant beside prod-K1 and S2 beside full
+   K1 on the same shapes;
 9. ring kernel: K4 (`dma` and `dma_barrier`) against the plain rotation
    (`ppermute`) bit for bit at 2 and 4 virtual ranks on an odd word count,
    on tuples of 1 to 4 arrays with odd counts and views that are not
@@ -58,7 +62,8 @@ code is non-zero and no result line is printed:
    oracle; then 4 batches of config 2 through the same mesh with
    shard_positions, against the single-device dense pileup;
 11. mesh timings: stream wall and reads/s, one batch in CUDA events, the
-   device's busy share (torch.profiler), and K4 per rotation at the path's
+   device's busy share and host-to-device copies (torch.profiler, the
+   shards and ref tables uploaded before it), and K4 per rotation at the path's
    shard sizes (first held bit for bit against the plain rotation on them)
    beside the plain rotation and the bare `copy_` calls. On
    one card the four ranks share its memory, so K4 copies within HBM: its
@@ -116,16 +121,36 @@ def say(*parts):
     print(*parts, flush=True)
 
 
+def template_args(mangled: str) -> list:
+    """The template arguments of a mangled `I...E` list: integers, and the
+    names of the policy structs of the kernels' namespace (`NS_<len><name>`),
+    e.g. ['4', '1', '2', 'S2Load', 'RawKeyOut']."""
+    args, k = [], 1
+    while k < len(mangled) and mangled[k] != "E":
+        m = re.match(r"L[ib](\d+)E", mangled[k:])
+        if m:
+            args.append(m.group(1))
+            k += m.end()
+            continue
+        m = re.match(r"NS_(\d+)", mangled[k:])
+        if not m:
+            break
+        k += m.end()
+        args.append(mangled[k:k + int(m.group(1))])
+        k += int(m.group(1)) + 1
+    return args
+
+
 def ptxas_report(lines):
     """(kernel, registers, spills) per kernel of a `-Xptxas -v` log, the
     kernel named with its template arguments."""
     name = spill = None
     for ln in lines:
         m = re.search(r"Compiling entry function '\S*?\d+"
-                      r"((?:sw|ring)_[a-z_]+_kernel)"
-                      r"(I(?:L[ib]\d+E)+E)?", ln)
+                      r"((?:sw|ring)_[a-z_]+_kernel)(\S*)'", ln)
         if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) or ""))
+            rest = m.group(2)
+            args = ",".join(template_args(rest) if rest[:1] == "I" else [])
             name, spill = m.group(1) + (f"<{args}>" if args else ""), None
         elif "spill" in ln:
             spill = ln.strip()
@@ -153,17 +178,16 @@ def bound(ops: float, nbytes: float, peak_ops: float):
 
 
 def blocks_per_sm(variant, L: int, regs: int, props) -> int:
-    """Resident blocks per SM of an S1 variant: the fewest that its shared
-    memory (plus the 1 KB the runtime reserves a block), its threads and its
-    registers (from the ptxas log, allocated per warp in units of 256)
-    leave room for."""
+    """Resident blocks per SM of a strip-kernel variant: the fewest that its
+    shared memory (plus the 1 KB the runtime reserves a block), its threads,
+    its registers (from the ptxas log, allocated per warp in units of 256)
+    and the 32 blocks an SM holds leave room for."""
     by_smem = props.shared_memory_per_multiprocessor // (
         variant.smem_bytes(L) + 1024)
-    by_threads = props.max_threads_per_multi_processor // variant.threads
+    by_threads = props.max_threads_per_multi_processor // (32 * variant.warps)
     regs_per_warp = -(-regs * 32 // 256) * 256
-    by_regs = props.regs_per_multiprocessor // (
-        regs_per_warp * (variant.threads // 32))
-    return min(by_smem, by_threads, by_regs)
+    by_regs = props.regs_per_multiprocessor // (regs_per_warp * variant.warps)
+    return min(by_smem, by_threads, by_regs, 32)
 
 
 def busy_ms_of(prof) -> float:
@@ -202,6 +226,47 @@ def max_abs_err(got, ref) -> int:
         if g.numel():
             err = max(err, int((g.long() - r.long()).abs().max()))
     return err
+
+
+def stream_syncs(run_stream, n_batches: int):
+    """(syncs a batch, {source line: syncs a batch}) of run_stream(), which
+    streams n_batches batches through `assemble._align_bin_batch`, as
+    torch.cuda.set_sync_debug_mode("warn") reports them. The window opens
+    as the second batch's step starts and closes as the last one's starts:
+    n_batches - 2 whole turns of the stream's loop, none of its set-up or
+    its end."""
+    import collections
+    import warnings
+
+    from rambl_tpu_torch.pipeline import assemble
+
+    real, seen = assemble._align_bin_batch, [0]
+
+    def windowed(*args, **kwargs):
+        seen[0] += 1
+        if seen[0] == 2:
+            torch.cuda.set_sync_debug_mode("warn")
+        elif seen[0] == n_batches:
+            torch.cuda.set_sync_debug_mode("default")
+        return real(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    assemble._align_bin_batch = windowed
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_stream()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        assemble._align_bin_batch = real
+    if seen[0] != n_batches:
+        raise AssertionError(f"{seen[0]} batches streamed, not {n_batches}")
+    at = collections.Counter(
+        f"{w.filename.rsplit('rambl_tpu_torch/', 1)[-1]}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message))
+    turns = n_batches - 2
+    return (sum(at.values()) / turns,
+            {k: v / turns for k, v in at.items()})
 
 
 def require_equal(what: str, got, ref) -> int:
@@ -260,9 +325,13 @@ def main() -> None:
                     and "0 bytes spill stores, 0 bytes spill loads"
                     not in (spill or "")):
                 raise AssertionError(f"{name} spills: {spill}")
+    from rambl_tpu_torch.ops import sw_variants as sv
+
     for name in ("sw_score_kernel", "ring_copy_kernel",
                  "sw_align_traceback_kernel<4>",
-                 "sw_align_traceback_kernel<8>"):
+                 "sw_align_traceback_kernel<8>",
+                 sv.S2_VARIANT.kernel("S2Load", "RawKeyOut"),
+                 *(v.kernel() for v in sv.VARIANTS)):
         if name not in kernel_regs:
             raise AssertionError(f"no ptxas report for {name}")
 
@@ -526,6 +595,7 @@ def main() -> None:
         prof_s = time.perf_counter() - t0
     on_dev = device_ops(prof)
     busy_ms = busy_ms_of(prof)
+    syncs, sync_at = stream_syncs(lambda: run_stream(6 * B), 6)
     card = card_line(dev)
     say(f"[6 timings] card: {card}")
     say(f"    profiled stream of {n_prof} reads: {prof_s * 1e3:.1f} ms wall, "
@@ -540,6 +610,10 @@ def main() -> None:
         f"included) [{card}]")
     say(f"    one batch of {B} (align + bin; CUDA events over 10 calls, "
         f"host gaps included): {batch_ms:.3f} ms [{card}]")
+    say(f"    host syncs a stream batch (set_sync_debug_mode('warn') over "
+        f"batches 2 to 5 of a 6-batch stream): {syncs:g} ("
+        + ", ".join(f"{k} x{v:g}" for k, v in sorted(sync_at.items()))
+        + ")")
     for nrows, (ms, tw, gcups) in k1.items():
         say(f"    K1 sw_score, {PAIRS} pairs x {nrows} rows x {W} cols: "
             f"{ms:.3f} ms = {gcups:.1f} GCUPS; twin {tw:.3f} ms [{card}]")
@@ -553,7 +627,6 @@ def main() -> None:
 
     # ---- 7. S1 and S2 against their plain versions, bit for bit -----------
     from rambl_tpu_torch import bench as tbench
-    from rambl_tpu_torch.ops import sw_variants as sv
     from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
 
     P1, L1, W1 = bench_sw_variants.PAIRS, bench_sw_variants.L, \
@@ -566,8 +639,8 @@ def main() -> None:
     props = torch.cuda.get_device_properties(dev)
     err["variant"], occ = 0, {}
     for v in sv.VARIANTS:
-        fn = sv.make_score_fn(sc, L1, W1, threads=v.threads, unroll=v.unroll,
-                              stage_q=v.stage_q)
+        fn = sv.make_score_fn(sc, L1, W1, strips=v.strips, warps=v.warps,
+                              arith=v.arith)
         got = fn(q1, w1)
         torch.cuda.synchronize()
         err["variant"] = max(err["variant"],
@@ -575,8 +648,7 @@ def main() -> None:
         for g, r in zip(got, orc1):
             np.testing.assert_array_equal(r, g[:256].cpu().numpy(),
                                           err_msg=f"S1 {v.name} vs oracle")
-        regs = kernel_regs[f"sw_variant_kernel<{v.threads},{v.unroll},"
-                           f"{int(v.stage_q)}>"]
+        regs = kernel_regs[v.kernel()]
         occ[v.name] = (blocks_per_sm(v, L1, regs, props), regs)
     del q1, w1, plain1
 
@@ -595,24 +667,61 @@ def main() -> None:
     torch.cuda.synchronize()
     err["pretransposed"] = require_equal("S2 raw key", [key2], [plain2])
     none_key = int(key2[-1])
-    if not (none_key < 0 and bool((key2[-128:] == none_key).all())):
-        raise AssertionError("S2: pairs with no positive cell must share one "
-                             "negative raw key")
+    if not (none_key == -(W2 + 2) and bool((key2[-128:] == none_key).all())):
+        raise AssertionError("S2: pairs with no positive cell must key "
+                             "-(W + 2), cell (1, 1)")
     for g, r in zip(sv.decode_raw_key(key2[:256], W2),
                     sw_batch(q2n[:256], w2n[:256], sc, want_dirs=False)[:3]):
         np.testing.assert_array_equal(r, g.cpu().numpy(), err_msg="S2 oracle")
-    del qT, wT, q2, w2, key2, plain2
+    # codes that only the 32-bit compare path can tell apart, in some blocks
+    trap = qT[:, :4096].clone(), wT[:, :4096].clone()
+    trap[0][:, 40:48], trap[1][:, 40:48] = 4, 4
+    trap[0][:, 48:56], trap[1][:, 48:56] = -1, -1
+    trap[0][:, 100:108], trap[1][:, 100:108] = 256, 0
+    trap[0][::2, 200:208], trap[1][::3, 200:208] = 1000, 1000
+    trap[1][:, 300:304], trap[1][:, 304:308] = 256, -1     # w only
+    trap = tuple(t.contiguous() for t in trap)
+    err["pretransposed"] = max(err["pretransposed"], require_equal(
+        "S2 raw key on codes outside 0..126",
+        [sv.score_pretransposed(*trap, sc, W2)],
+        [tsw.sw_raw_key(trap[0].t().contiguous(),
+                        trap[1][:W2].t().contiguous(), sc)]))
+    # the 32-bit compare path at full size: one q code a pair outside
+    # 0..126 sends every block there; timed beside the byte path
+    qT_wide = qT.clone()
+    qT_wide[0] = 1000
+    err["pretransposed"] = max(err["pretransposed"], require_equal(
+        "S2 raw key, every block on the 32-bit path",
+        [sv.score_pretransposed(qT_wide, wT, sc, W2)],
+        [tsw.sw_raw_key(qT_wide.t().contiguous(), w2, sc)]))
+    s2_path_ms = {}
+    for path, qx in (("byte", qT), ("32-bit", qT_wide), ("byte", qT),
+                     ("32-bit", qT_wide)):
+        s2_path_ms.setdefault(path, []).append(median_spread(trial_times(
+            sv.score_pretransposed, qx, wT, sc, W2, device=dev, trials=3,
+            iters=10))[0])
+    del qT, wT, q2, w2, key2, plain2, trap, qT_wide
     say(f"[7 bench kernels] S1: {len(sv.VARIANTS)} variants on {P1} planted "
         f"pairs x {L1} x {W1} equal the plain version bit for bit (plain "
         f"{s1_plain_ms:.1f} ms); S2 raw key on {P2} pairs x {L2} x {W2} equals "
         f"the plain version bit for bit (plain {s2_plain_ms:.1f} ms; a pair "
-        f"with no positive cell keys {none_key}); 256 pairs each equal the "
-        f"NumPy oracle")
-    say(f"    S1 resident blocks per SM at L={L1} (shared memory a block, "
-        f"registers a thread; {props.shared_memory_per_multiprocessor} B "
-        f"shared memory an SM): " + ", ".join(
-            f"{v.name} {occ[v.name][0]} ({v.smem_bytes(L1)} B, "
-            f"{occ[v.name][1]} regs)" for v in sv.VARIANTS))
+        f"with no positive cell keys {none_key}), also on 4096 pairs with "
+        f"codes 4 == 4, -1, 256 against 0 and 1000 (and 256 and -1 in w "
+        f"only), and on all {P2} pairs with one code a pair outside 0..126; "
+        f"256 pairs each equal the NumPy oracle")
+    say(f"    S2 kernel only on {P2} x {L2} x {W2}, median of 3 trials of 10 "
+        f"calls, twice each: byte compare path "
+        + ", ".join(f"{t:.3f}" for t in s2_path_ms["byte"])
+        + " ms; 32-bit compare path (every block) "
+        + ", ".join(f"{t:.3f}" for t in s2_path_ms["32-bit"])
+        + f" ms [{card}]")
+    say(f"    strip-kernel resident blocks per SM at L={L1} (shared memory a "
+        f"block, registers a thread; {props.shared_memory_per_multiprocessor}"
+        f" B shared memory an SM): " + ", ".join(
+            f"{v.name} {occ[v.name][0]} x {v.warps} warps ({v.smem_bytes(L1)}"
+            f" B, {occ[v.name][1]} regs)" for v in sv.VARIANTS)
+        + f"; S2 {sv.S2_VARIANT.name} "
+        f"{kernel_regs[sv.S2_VARIANT.kernel('S2Load', 'RawKeyOut')]} regs")
 
     # ---- 8. the bench path: each entry point once, launches counted --------
     def counted(run):
@@ -638,6 +747,14 @@ def main() -> None:
             if n_run[k] <= 0:
                 raise AssertionError(f"{what}: kernel {k} never launched")
         say(f"    launches in {what}: {n_run}")
+    res1 = sweep["results"]
+    best_v = min((k for k in res1 if k != "prod-K1"),
+                 key=lambda k: res1[k]["ms"])
+    say(f"    S1's best variant {best_v} {res1[best_v]['ms']:.3f} ms against "
+        f"prod-K1 {res1['prod-K1']['ms']:.3f} ms on the same "
+        f"{P1} x {L1} x {W1}; S2 kernel only {abl['kernel_only']['ms']:.3f} "
+        f"ms against full K1 {abl['full']['ms']:.3f} ms on {P2} x {L2} x "
+        f"{W2} [{card}]")
 
     # ---- 9. K4 against the plain rotation, bit for bit ----------------------
     import dataclasses
@@ -896,13 +1013,14 @@ def main() -> None:
     torch.cuda.synchronize()
     table_up_s = time.perf_counter() - t0
     del table4
-    # the device's busy share of the stream alone (shards passed in), and
-    # where its device time goes
+    # the device's busy share of the stream alone (shards and ref tables
+    # uploaded before it and passed in), and where its device time goes
     n_prof4 = 8 * B4
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof4:
         t0 = time.perf_counter()
-        run_mesh(n_prof4, mesh=mesh4, ring_shards=shards4)
+        run_mesh(n_prof4, mesh=mesh4, ring_shards=shards4,
+                 stream_tables=[st4] * n_ranks)
         torch.cuda.synchronize()
         prof4_s = time.perf_counter() - t0
     busy4_ms = busy_ms_of(prof4)
@@ -955,10 +1073,15 @@ def main() -> None:
         f"median of 3 trials ("
         + ", ".join(f"{t:.3f}" for t in batch_trials)
         + f" ms, spread {batch_spread:.1f}%) [{card}]")
-    say(f"    profiled mesh stream of {n_prof4} reads (shards passed in): "
+    say(f"    profiled mesh stream of {n_prof4} reads (shards and ref tables "
+        f"passed in): "
         f"{prof4_s * 1e3:.1f} ms wall, device busy {busy4_ms:.1f} ms (union "
         f"of device intervals) = busy {100 * busy4_ms / (prof4_s * 1e3):.1f}%"
-        f" [{card}]")
+        f", {busy4_ms / nb_prof4:.3f} ms a batch; host-to-device copies "
+        + ", ".join(f"{e.key} {e.self_device_time_total / 1e3 / nb_prof4:.3f}"
+                    f" ms over {e.count / nb_prof4:.1f} a batch"
+                    for e in on_dev4 if "HtoD" in e.key)
+        + f" [{card}]")
     say("      device time by kernel, summed over the rank streams (which "
         "overlap, so the sum may exceed the wall):")
     for e in on_dev4[:10]:
@@ -998,12 +1121,12 @@ def main() -> None:
         "K2+K3": k23_bound(n_tb, k3_steps),
         "S1": bound(OPS_PER_CELL * P1 * L1 * W1, P1 * (L1 + W1) + 12 * P1,
                     peak),
-        "S2": bound(OPS_PER_CELL * P2 * L2 * W2, 4 * P2 * (L2 + W2 + 1), peak),
+        # S2's byte path, plus the range test of its staging: two a code
+        "S2": bound(OPS_PER_CELL * P2 * L2 * W2 + 2 * P2 * (L2 + W2),
+                    4 * P2 * (L2 + W2 + 1), peak),
         # every shard word read once and written once; no arithmetic
         "K4": bound(0, 2 * shard_bytes, peak),
     }
-    best_v = max((k for k in sweep["results"] if k != "prod-K1"),
-                 key=lambda k: sweep["results"][k]["gcups"])
     say(f"[8 bench path] bounds at {peak / 1e12:.2f} T INT32 op/s and "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {OPS_PER_CELL} operations a cell "
         f"of K1's function (packed 16-bit: an instruction serves two cells; "
@@ -1040,7 +1163,7 @@ def main() -> None:
                launches["align"], err["align"], k23[n_tb][0], k23[n_tb][3],
                "K2+K3"),
          "device_ms": k23[n_tb][1]},
-        row(f"sw_variant_score (S1, {best_v})", src_v,
+        row(f"sw_strip_score (S1, {best_v})", src_v,
             "scripts/bench_sw_variants.py:48", sweep_n["variant"],
             err["variant"], sweep["results"][best_v]["ms"], s1_plain_ms, "S1"),
         row("sw_pretransposed (S2)", src_v, "scripts/ablate_prep.py:47",

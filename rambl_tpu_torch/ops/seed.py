@@ -173,18 +173,16 @@ def gather_windows(ref_seqs: torch.Tensor, cand_ref: torch.Tensor,
                                                  device=cand_wstart.device)
     in_range = (cols >= 0) & (cols < RL)
     g = ref_seqs[cand_ref[..., None].long(), torch.clamp(cols, 0, RL - 1).long()]
-    return torch.where(in_range, g, torch.tensor(4, dtype=torch.int8,
-                                                 device=g.device))
+    return torch.where(in_range, g, 4)
 
 
 def revcomp(reads: torch.Tensor, read_lens: torch.Tensor) -> torch.Tensor:
     """Batched reverse complement keeping right padding (io.pack semantics):
     out[b, p] = comp(reads[b, len - 1 - p]) for p < len, else 4."""
     B, L = reads.shape
-    four = torch.tensor(4, dtype=torch.int8, device=reads.device)
-    c = torch.where(reads < 4, 3 - reads, four)
+    c = torch.where(reads < 4, 3 - reads, 4)
     p = torch.arange(L, dtype=torch.int64, device=reads.device)
     lens = read_lens.to(torch.int64)[:, None]
     src = torch.clamp(lens - 1 - p, 0, L - 1)
     out = torch.gather(c, 1, src)
-    return torch.where(p < lens, out, four)
+    return torch.where(p < lens, out, 4)

@@ -19,9 +19,10 @@ The sweep runs over anti-diagonals d = i + j with the batch as the leading
 axis, so each step is a handful of (B, L) tensor ops. Direction bits use the
 reference layout: cell (i, j) of pair b sits at dirs[i + j - 2, b, i - 1].
 
-`sw_score_packed16` and `sw_align_traceback_lanes` are the CUDA kernels'
-schedules and arithmetic in plain PyTorch, step for step: no path of the
-port calls them; they pin the kernels' designs where there is no card.
+`sw_score_packed16`, `sw_score_strips` and `sw_align_traceback_lanes` are
+the CUDA kernels' schedules and arithmetic in plain PyTorch, step for step
+(K1's, the strip kernel of S1 and S2, K2 + K3's): no path of the port calls
+them; they pin the kernels' designs where there is no card.
 
 `sw_raw_key` is the one function with other rules: the TPU score kernel's
 raw output (`rambl_tpu/ops/sw_pallas.py::_score_kernel`, which the S2
@@ -210,6 +211,108 @@ def sw_score_packed16(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):
     zero = torch.zeros_like(score)
     return (score, torch.where(none, zero, i_end),
             torch.where(none, zero, best_j.to(torch.int32)))
+
+
+def sw_score_strips(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams,
+                    strips: int, *, raw_key: bool = False):
+    """`sw_score` (or, with `raw_key`, `sw_raw_key`) in the schedule and
+    arithmetic of the strip kernel of S1 and S2 (`csrc/sw_variants.cu`),
+    step for step, in torch.int16. Bit-identical to them; the tests hold it
+    to that. Nothing on the card's path calls it.
+
+    - The rows, L rounded up to whole q words of 4, are cut into `strips`
+      strips of whole words, strip s taking words [s * r4 // strips,
+      (s + 1) * r4 // strips). Strip s does column t + 1 - s at step t of
+      W + strips - 1; at each step it takes (H - open, F) of the last row of
+      strip s - 1 as that strip left it a step before, and the column's w
+      code, and the H that came in a step earlier is its diagonal.
+    - The column state is (H - open, E) a row, borders at BORDER16.
+    - Match: S1 remaps q >= 4 to 4 and w >= 4 to 5 and compares; with
+      `raw_key` the codes are compared as given (S2). A row past L (raw_key
+      only) equals nothing.
+    - The column key (H << rbits) + (2^rbits - i) of each strip's rows goes
+      once a column, as (key << 16) | (0xFFFF - j), into the pair's running
+      max. The raw key is rebuilt from the best cell, -(W + 2) where no cell
+      is positive.
+    """
+    B, L = q.shape
+    W = w.shape[1]
+    r4 = -(-L // 4)
+    rows = 4 * r4
+    rbits = check_packed16(rows, sc)
+    i16 = torch.int16
+    dev = q.device
+
+    def const(x):
+        return torch.full((B,), x, dtype=i16, device=dev)
+
+    open_ = sc.gap_open + sc.gap_extend
+    if raw_key:
+        qc, wc = q.to(torch.int64), w.to(torch.int64)
+        live = torch.arange(rows, device=dev) < L
+    else:
+        qc = torch.where(q < 4, q, 4).to(torch.int64)
+        wc = torch.where(w < 4, w, 5).to(torch.int64)
+        live = torch.ones(rows, dtype=torch.bool, device=dev)
+    qc = torch.cat([qc, qc.new_zeros((B, rows - L))], dim=1)
+    lo = [4 * (s * r4 // strips) for s in range(strips + 1)]
+    hm = [const(-open_) for _ in range(rows)]       # H(i, j - 1) - open
+    e_col = [const(BORDER16) for _ in range(rows)]  # E(i, j - 1)
+    # what each strip handed on at the end of the last step: its last row's
+    # H - open and F, and the column's w code; the H that came in before
+    out_hm = [const(-open_) for _ in range(strips)]
+    out_f = [const(BORDER16) for _ in range(strips)]
+    out_w = [wc[:, 0] for _ in range(strips)]
+    diag_in = [const(-open_) for _ in range(strips)]
+    best = torch.zeros(B, dtype=torch.int32, device=dev)
+    for t in range(W + strips - 1):
+        came = [(out_hm[s - 1], out_f[s - 1], out_w[s - 1]) if s else None
+                for s in range(strips)]
+        for s in range(strips):
+            j = t + 1 - s
+            if s:
+                hm_up, f_up, wj = came[s]
+                hm_diag, diag_in[s] = diag_in[s], hm_up
+                out_w[s] = wj
+            else:
+                hm_up, f_up, hm_diag = const(-open_), const(BORDER16), \
+                    const(-open_)
+                if j <= W:
+                    out_w[0] = wc[:, j - 1]
+            if not 1 <= j <= W:
+                continue
+            wj = out_w[s]
+            colkey = torch.zeros(B, dtype=i16, device=dev)
+            for i in range(lo[s] + 1, lo[s + 1] + 1):
+                e = torch.maximum(e_col[i - 1] - sc.gap_extend, hm[i - 1])
+                hit = (qc[:, i - 1] == wj) & live[i - 1]
+                sub = torch.where(hit, sc.match + open_,
+                                  sc.mismatch + open_).to(i16)
+                f = torch.maximum(f_up - sc.gap_extend, hm_up)
+                h = torch.clamp(torch.maximum(hm_diag + sub,
+                                              torch.maximum(e, f)), min=0)
+                hm_diag = hm[i - 1]
+                hm[i - 1] = hm_up = h - open_
+                e_col[i - 1] = e
+                f_up = f
+                colkey = torch.maximum(colkey,
+                                       (h << rbits) + ((1 << rbits) - i))
+            out_hm[s], out_f[s] = hm_up, f_up
+            if colkey.dtype != i16 or hm_up.dtype != i16:
+                raise AssertionError("the sweep left 16-bit arithmetic")
+            best = torch.maximum(best, (colkey.to(torch.int32) << 16)
+                                 | (0xFFFF - j))
+    key = best >> 16
+    score = key >> rbits
+    none = score == 0
+    zero = torch.zeros_like(score)
+    i_end = torch.where(none, zero, (1 << rbits) - (key & ((1 << rbits) - 1)))
+    j_end = torch.where(none, zero, 0xFFFF - (best & 0xFFFF))
+    if raw_key:
+        return torch.where(none, -(W + 2),
+                           score * TIE - (i_end * (W + 1) + j_end)
+                           ).to(torch.int32)
+    return score, i_end.to(torch.int32), j_end.to(torch.int32)
 
 
 def sw_align(q: torch.Tensor, w: torch.Tensor, sc: ScoringParams):

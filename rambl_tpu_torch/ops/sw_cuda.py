@@ -144,7 +144,7 @@ def load_library() -> ctypes.CDLL:
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.rambl_sw_score.argtypes = [P] * 5 + [I] * 9 + [P]
             lib.rambl_sw_align.argtypes = [P] * 7 + [I] * 9 + [P]
-            lib.rambl_sw_variant_score.argtypes = [P] * 5 + [I] * 11 + [P]
+            lib.rambl_sw_strip_score.argtypes = [P] * 5 + [I] * 11 + [P]
             lib.rambl_sw_pretransposed.argtypes = [P] * 3 + [I] * 8 + [P]
             # K4 (csrc/ring.cu, wrapped by parallel.ring_dma)
             lib.rambl_ring_copy.argtypes = [P, P, P, I, I, I, P, P, P]
@@ -154,7 +154,7 @@ def load_library() -> ctypes.CDLL:
             lib.rambl_ring_layout.argtypes = [P, P, P]
             lib.rambl_ring_layout.restype = None
             for fn in (lib.rambl_sw_score, lib.rambl_sw_align,
-                       lib.rambl_sw_variant_score,
+                       lib.rambl_sw_strip_score,
                        lib.rambl_sw_pretransposed, lib.rambl_ring_copy,
                        lib.rambl_ring_wait, lib.rambl_ring_barrier,
                        lib.rambl_ring_enable_peer):

@@ -1,25 +1,45 @@
-"""K1 variants (S1) and K1 on pre-transposed inputs (S2), the kernels of the
-bench scripts (`csrc/sw_variants.cu`), with their plain PyTorch versions.
+"""K1's function under a sweep of designs (S1) and on pre-transposed inputs
+(S2), the kernels of the bench scripts, with their plain PyTorch versions.
+Both are instances of one CUDA strip kernel built on K1's design,
+`csrc/sw_variants.cu::sw_strip_kernel<kStrips, kWarps, kPairs, Load, Out>`.
 
-- `make_score_fn(sc, L, W, *, threads, unroll, stage_q)` ports
+- `make_score_fn(sc, L, W, *, strips, warps, arith)` ports
   `scripts/bench_sw_variants.py::make_score_fn`: it returns `score(q, w)` with
   the contract of that script's `score`: q (B, L) and w (B, W) int8 codes ->
   (score, i_end, j_end) (B,) int32; window codes >= 4 never match; no `rows`
   truncation; any W; ties to the lowest (i, j); (0, 0, 0) for a pair with no
   positive cell. That is K1's function, so the plain version is
-  `ops.sw.sw_score`.
+  `ops.sw.sw_score`; `ops.sw.sw_score_strips` runs the kernel's schedule in
+  its 16-bit arithmetic.
 
-  The TPU script's knobs `preshift`, `phases` and `rowkey` remove roll and
-  select work of its anti-diagonal layout. The CUDA kernel sweeps columns
-  and does none of that work, so they have no counterpart here. Its knobs
-  are `threads` per block (64, 128, 256; the TPU's `tile`), the `unroll` of
-  the inner row loop (4 or 8; the TPU's `mid_unroll`) and `stage_q`, which
-  stages the block's q tile in shared memory with coalesced loads.
+  The knobs, one CUDA instance a `Variant`:
+  - `strips` (1, 2, 4): a pair's rows cut into strips on as many lanes, each
+    a column behind the one above it. More strips, more resident warps on
+    the same shared memory (K1 ships 2 at 104 rows);
+  - `warps` a block (1, 4): the scope of the barriers around each staged
+    chunk of w against the number of blocks an SM holds;
+  - `arith` ("s16x2", "s32"): two pairs a thread in packed 16-bit DPX, K1's,
+    or one pair a thread in 32-bit DPX, K2 + K3's: whether the packing pays
+    at 128 rows.
+
+  The TPU script's knobs have no counterpart here, or give way to one:
+  `preshift` stores the diagonal predecessor pre-rolled and `phases` splits
+  the band loop so that the anti-diagonal layout's masks cost nothing; the
+  column sweep rolls nothing and masks only the strips' fill and drain, so
+  neither has a counterpart. `rowkey` defers the row term of the best key;
+  the kernel's column key (H << rbits) + (2^rbits - i) already costs one
+  multiply-add a cell, K1's, so it has none either. `tile` (pairs a grid
+  step) becomes the pairs a block, which `strips`, `warps` and `arith` set
+  (8 to 256). `mid_unroll` unrolled the TPU's band loop; the inner loop here
+  is unrolled by a fixed factor as in K1, and `strips` sets its trip count.
 - `score_pretransposed(qT, wT, sc, W)` ports `scripts/ablate_prep.py::
-  kernel_only`: qT (L, B) and wT (>= W, B) int32, batch-minor, -> the raw
-  (B,) int32 key that `rambl_tpu/ops/sw_pallas.py::_score_kernel` leaves in
-  row 0 of its output tile (`ops.sw.sw_raw_key`); `decode_raw_key` turns it
-  into (score, i_end, j_end).
+  kernel_only`: qT (L, B) and wT (>= W, B) int32, batch-minor, codes compared
+  as given -> the raw (B,) int32 key that `rambl_tpu/ops/sw_pallas.py::
+  _score_kernel` leaves in row 0 of its output tile (`ops.sw.sw_raw_key`);
+  `decode_raw_key` turns it into (score, i_end, j_end). One design,
+  `S2_VARIANT`; a block whose q codes all lie in 0..126 compares codes as
+  bytes (a w code outside that range equals none of them), any other block
+  in 32 bits (`csrc/sw_variants.cu`).
 - `prep(q, w)` is that script's input preparation (cast, transpose, pad) in
   plain PyTorch: what the S2 ablation times against the kernel.
 
@@ -37,18 +57,17 @@ from rambl_tpu_torch.config import ScoringParams
 from rambl_tpu_torch.ops import sw as _twin
 from rambl_tpu_torch.ops.sw_cuda import (
     _check_key,
-    _check_scores,
     _on_cpu,
     _raise_on,
-    _scoring_args,
     _stream,
     load_library,
 )
 
 LAUNCHES = {"variant": 0, "pretransposed": 0}
 
-THREADS = (64, 128, 256)
-UNROLLS = (4, 8)
+STRIPS = (1, 2, 4)
+WARPS = (1, 4)
+ARITHS = ("s16x2", "s32")
 #: shared memory one block may use on Hopper (232,448 bytes)
 MAX_SMEM = 227 * 1024
 
@@ -59,43 +78,65 @@ def reset_launches() -> None:
 
 
 class Variant(NamedTuple):
-    """One build of the S1 kernel (`csrc/sw_variants.cu`)."""
+    """One instance of the strip kernel (`csrc/sw_variants.cu`)."""
 
-    threads: int
-    unroll: int
-    stage_q: bool
+    strips: int
+    warps: int
+    arith: str
 
     @property
     def name(self) -> str:
-        return (f"t{self.threads}-u{self.unroll}"
-                + ("-smem" if self.stage_q else ""))
+        return f"s{self.strips}-w{self.warps}-{self.arith}"
+
+    @property
+    def pairs(self) -> int:
+        """Pairs a thread."""
+        return 2 if self.arith == "s16x2" else 1
+
+    @property
+    def block_pairs(self) -> int:
+        return self.warps * (32 // self.strips) * self.pairs
+
+    def kernel(self, load: str = "S1Load", out: str = "TripleOut") -> str:
+        """The instance's name as `chip_smoke.ptxas_report` gives it."""
+        return (f"sw_strip_kernel<{self.strips},{self.warps},{self.pairs},"
+                f"{load},{out}>")
 
     def smem_bytes(self, L: int) -> int:
-        """Dynamic shared memory of one block at L query rows."""
-        words = (L + 1) * self.threads
-        if self.stage_q:
-            words += (L // 4) * (self.threads + 1)
-        return 4 * words
+        """Dynamic shared memory of one block at L query rows: a warp's
+        column state and q planes, and a chunk of w (`StripLayout`)."""
+        lanes = 32 // self.strips
+        r4 = -(-L // 4)
+        q_words = -(-r4 // self.strips) | 1
+        col = (4 * r4 + self.strips - 1) * lanes * 8
+        q = self.pairs * self.strips * q_words * lanes * 4
+        w = (32 * (self.block_pairs + 4) + 15) & ~15
+        return self.warps * (col + q) + w
 
 
-VARIANTS = tuple(Variant(t, u, s) for t in THREADS for u in UNROLLS
-                 for s in (False, True))
+VARIANTS = tuple(Variant(s, g, a) for s in STRIPS for g in WARPS
+                 for a in ARITHS)
+#: S2's one design (`csrc/sw_variants.cu` kS2Strips, kS2Warps)
+S2_VARIANT = Variant(8, 4, "s16x2")
 
 
-def make_score_fn(sc: ScoringParams, L: int, W: int, *, threads: int = 128,
-                  unroll: int = 4, stage_q: bool = False):
+def make_score_fn(sc: ScoringParams, L: int, W: int, *, strips: int = 2,
+                  warps: int = 1, arith: str = "s16x2", **old):
     """S1: a `score(q, w)` for (B, L) x (B, W) int8 pairs (module
     docstring)."""
-    v = Variant(threads, unroll, bool(stage_q))
-    if threads not in THREADS or unroll not in UNROLLS:
-        raise ValueError(f"no S1 kernel for threads={threads}, unroll="
-                         f"{unroll} (built: threads {THREADS}, unroll "
-                         f"{UNROLLS})")
+    if old:
+        raise ValueError(f"make_score_fn has no {sorted(old)}: the S1 knobs "
+                         "are strips, warps and arith")
+    if strips not in STRIPS or warps not in WARPS or arith not in ARITHS:
+        raise ValueError(f"no S1 kernel for strips={strips}, warps={warps}, "
+                         f"arith={arith!r} (built: strips {STRIPS}, warps "
+                         f"{WARPS}, arith {ARITHS})")
+    v = Variant(strips, warps, arith)
     if L < 4 or W < 1 or L % 4:
         raise ValueError(f"L={L}, W={W}: the kernel reads q four codes at a "
                          "time, so L must be a positive multiple of 4")
     _check_key(L, W)
-    _check_scores(L, sc)
+    rbits = _twin.check_packed16(L, sc)
     if v.smem_bytes(L) > MAX_SMEM:
         raise ValueError(f"variant {v.name} needs {v.smem_bytes(L)} B of "
                          f"shared memory at L={L} (> {MAX_SMEM})")
@@ -122,11 +163,12 @@ def make_score_fn(sc: ScoringParams, L: int, W: int, *, threads: int = 128,
                for _ in range(3)]
         if n:
             with torch.cuda.device(q.device):
-                rc = load_library().rambl_sw_variant_score(
+                rc = load_library().rambl_sw_strip_score(
                     q.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in out),
-                    n, L, W, *_scoring_args(sc), v.threads, v.unroll,
-                    int(v.stage_q), _stream(q))
-            _raise_on(rc, f"sw_variant {v.name}")
+                    n, L, W, sc.match, sc.mismatch, sc.gap_open,
+                    sc.gap_extend, rbits, v.strips, v.warps, v.pairs,
+                    _stream(q))
+            _raise_on(rc, f"sw_strip {v.name}")
             LAUNCHES["variant"] += 1
         return tuple(out)
 
@@ -146,7 +188,8 @@ def score_pretransposed(qT: torch.Tensor, wT: torch.Tensor,
         raise ValueError(f"wT has {wT.shape[0]} rows; W={W} needs >= 1 and "
                          f"<= that, and L={L} >= 1")
     _check_key(L, W)
-    _check_scores(L, sc)
+    rows = -(-L // 4) * 4           # the kernel's rows: whole q words
+    rbits = _twin.check_packed16(rows, sc)
     if _on_cpu(qT, wT):
         return _twin.sw_raw_key(qT.t().contiguous(),
                                 wT[:W].t().contiguous(), sc)
@@ -154,14 +197,15 @@ def score_pretransposed(qT: torch.Tensor, wT: torch.Tensor,
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor, "
                              f"got {t.dtype}")
-    if (L + 1) * 128 * 4 > MAX_SMEM:
+    if S2_VARIANT.smem_bytes(rows) > MAX_SMEM:
         raise ValueError(f"L={L} needs more shared memory than a block has")
     key = torch.empty((n,), dtype=torch.int32, device=qT.device)
     if n:
         with torch.cuda.device(qT.device):
             rc = load_library().rambl_sw_pretransposed(
                 qT.data_ptr(), wT.data_ptr(), key.data_ptr(), n, L, W,
-                *_scoring_args(sc), _stream(qT))
+                sc.match, sc.mismatch, sc.gap_open, sc.gap_extend, rbits,
+                _stream(qT))
         _raise_on(rc, "sw_pretransposed")
         LAUNCHES["pretransposed"] += 1
     return key

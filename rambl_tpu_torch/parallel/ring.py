@@ -31,7 +31,7 @@ from rambl_tpu_torch.ops.seed import (
 )
 from rambl_tpu_torch.parallel.mesh import DataMesh
 from rambl_tpu_torch.parallel.ring_dma import ring_rotate
-from rambl_tpu_torch.pipeline.align import align_from_candidates, check_sw_rows
+from rambl_tpu_torch.pipeline.align import align_from_candidates
 
 
 def build_ring_shards(index, n_shards: int) -> dict:
@@ -127,12 +127,13 @@ def ring_align_batch(mesh: DataMesh, reads, read_lens, shards: RingShards,
     """align_batch with ring-sharded seeding over per-rank reads (lists of
     (B/n, L) int8 and (B/n,) int32) and per-rank ref_seqs; returns per-rank
     AlignRecords, bitwise align_batch's with the replicated table. Called
-    between mesh.fork() and mesh.join()."""
+    between mesh.fork() and mesh.join(). The lengths are not checked against
+    cfg.sw_rows here (a sync a rank): the stream checks its host lengths, as
+    the reference's traced version leaves the check to it."""
     n = mesh.size
     rc_reads, cands = [], {}
     for r in range(n):
         with mesh.rank(r):
-            check_sw_rows(read_lens[r], cfg)
             rc_reads.append(revcomp(reads[r], read_lens[r]))
     for strand, qs in (("f", reads), ("r", rc_reads)):
         keys, valid = [], []

@@ -8,7 +8,8 @@ pair is the maximum score with ties to the lowest pair index (forward
 candidates before reverse-complement ones). Most best pairs are gapless, and
 their columns come from the end cell alone: walk the diagonal back until the
 suffix substitution sum reaches the best score. Only the rest carry gaps;
-they are compacted with `nonzero` and go through K2 + K3. The reference's
+they are compacted with `nonzero` (the one host sync of the step) and go
+through K2 + K3. The reference's
 traceback cap and full-batch fallback are a static-shape device; this eager
 port has no cap and gives what both of its branches give.
 """
@@ -56,7 +57,10 @@ def mapping_quality(res: AlignRecords) -> torch.Tensor:
 
 
 def check_sw_rows(read_lens: torch.Tensor, cfg: PipelineConfig) -> None:
-    """cfg.sw_rows is exact only when every real read fits in it."""
+    """cfg.sw_rows is exact only when every real read fits in it. Reads the
+    longest length back to the host: one sync. The stream checks its host
+    lengths once instead and skips this (`align_batch(check_rows=False)`),
+    as the reference skips it under trace."""
     if not cfg.sw_rows or read_lens.numel() == 0:
         return
     ml = int(read_lens.max())
@@ -68,8 +72,12 @@ def check_sw_rows(read_lens: torch.Tensor, cfg: PipelineConfig) -> None:
 
 def align_batch(reads: torch.Tensor, read_lens: torch.Tensor,
                 table: SeedTable, ref_seqs: torch.Tensor,
-                cfg: PipelineConfig) -> AlignRecords:
-    check_sw_rows(read_lens, cfg)
+                cfg: PipelineConfig, *, check_rows: bool = True
+                ) -> AlignRecords:
+    """`check_rows=False` is for callers that have checked the lengths
+    against cfg.sw_rows on the host (`check_sw_rows`)."""
+    if check_rows:
+        check_sw_rows(read_lens, cfg)
     rc_reads = revcomp(reads, read_lens)
     cands_f = seed_candidates(reads, read_lens, table, cfg)
     cands_r = seed_candidates(rc_reads, read_lens, table, cfg)
@@ -128,10 +136,11 @@ def align_from_candidates(reads: torch.Tensor, rc_reads: torch.Tensor,
     live = kk[None, :] < kmax[:, None]
     qi = torch.gather(qb, 1, torch.clamp(ie[:, None] - 1 - kk, 0, L - 1).long())
     wj = torch.gather(wb, 1, torch.clamp(je[:, None] - 1 - kk, 0, W - 1).long())
-    sub = torch.where((qi == wj) & (qi < 4) & (wj < 4),
-                      torch.tensor(sc.match, dtype=i32, device=dev),
-                      torch.tensor(sc.mismatch, dtype=i32, device=dev))
-    sub = torch.where(live, sub, sc.neg_inf)
+    # int32 filled on the device: a device tensor made from a Python scalar
+    # is a host copy, and where() of two Python scalars gives int64
+    sub = torch.full(qi.shape, sc.mismatch, dtype=i32, device=dev)
+    sub.masked_fill_((qi == wj) & (qi < 4) & (wj < 4), sc.match)
+    sub.masked_fill_(~live, sc.neg_inf)
     S = torch.cumsum(sub, dim=1, dtype=i32)                   # suffix sums
     hit = (S == best_score[:, None]) & live
     gapless = hit.any(dim=1) & (best_score > 0)

@@ -56,9 +56,11 @@ class StreamTables(NamedTuple):
 def _align_bin_batch(reads, lens, table: SeedTable, st: StreamTables,
                      cfg: PipelineConfig):
     """Align + bin one batch, with ref columns projected to leaf-anchor
-    coordinates -> (query, proj, bins, score, ref, strand)."""
-    return _bin_project(align_batch(reads, lens, table, st.ref_seqs, cfg),
-                        st, cfg)
+    coordinates -> (query, proj, bins, score, ref, strand). The lengths are
+    not checked against cfg.sw_rows here: the stream checks them on the host
+    (the reference's jitted step leaves the check to it too)."""
+    return _bin_project(align_batch(reads, lens, table, st.ref_seqs, cfg,
+                                    check_rows=False), st, cfg)
 
 
 def _bin_project(res, st: StreamTables, cfg: PipelineConfig):
@@ -108,7 +110,7 @@ def _pad_batches(reads: np.ndarray, lens: np.ndarray, batch: int):
 
 def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
                  cfg: PipelineConfig, mesh=None, col_maps=None, *,
-                 device=None, ring_shards=None):
+                 device=None, ring_shards=None, stream_tables=None):
     """Stream host reads through the align + bin step on `device` (the
     first CUDA card when None; pass "cpu" for the plain PyTorch path).
 
@@ -127,9 +129,12 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
     Host batches are copied from pinned memory with non_blocking=True, one
     batch ahead of the batch being aligned.
 
+    The lengths are checked against cfg.sw_rows here, on the host, once;
+    the batches skip the device-side check, which would sync each one.
+
     With `mesh` (a `parallel.mesh.DataMesh`; `device` is then unused) the
-    stream runs data-parallel, see `_stream_align_mesh`; `ring_shards` is
-    only for that case.
+    stream runs data-parallel, see `_stream_align_mesh`; `ring_shards` and
+    `stream_tables` are only for that case.
     """
     if cfg.sw_rows and int(np.max(lens, initial=0)) > cfg.sw_rows:
         raise UserError(
@@ -137,9 +142,10 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
             "the truncated SW sweep is only exact when every real read fits")
     if mesh is not None:
         return _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens,
-                                  tables, cfg, mesh, col_maps, ring_shards)
-    if ring_shards is not None:
-        raise ValueError("ring_shards needs a mesh")
+                                  tables, cfg, mesh, col_maps, ring_shards,
+                                  stream_tables)
+    if ring_shards is not None or stream_tables is not None:
+        raise ValueError("ring_shards and stream_tables need a mesh")
     device = resolve(device)
     table = SeedTable.from_index(index, device)
     if col_maps is None:
@@ -206,7 +212,7 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
 
 def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
                        cfg: PipelineConfig, mesh, col_maps=None,
-                       ring_shards=None):
+                       ring_shards=None, stream_tables=None):
     """Data-parallel `stream_align` over the ranks of `mesh` (the
     reference's `_stream_align_mesh`, bitwise).
 
@@ -222,6 +228,11 @@ def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
     `index` on this mesh, built once with `build_ring_shards`, so that
     several samples stream against one sharded index without building and
     uploading it again; the ring leaves every shard where it found it.
+
+    `stream_tables`: per-rank `StreamTables` of `ref_seqs`, `tables` and
+    `col_maps`, each on its rank's card (virtual ranks of a card may share
+    one), built once with `StreamTables.from_host`, so that the stream
+    uploads none of them.
 
     Returns (merged, counts, span_diff, read_count), every tensor as a
     per-rank list: merged["bins", "score", "ref", "strand"] (B,) replicated;
@@ -263,9 +274,19 @@ def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
     if col_maps is None:
         col_maps = build_col_maps(np.asarray(ref_seqs), np.asarray(ref_lens),
                                   np.asarray(tables.ref_taxon))
-    per_dev = {d: StreamTables.from_host(ref_seqs, tables, col_maps, d)
-               for d in dict.fromkeys(mesh.devices)}
-    st = [per_dev[d] for d in mesh.devices]
+    if stream_tables is not None:
+        st = list(stream_tables)
+        if len(st) != n or any(
+                s.ref_seqs.device != d or tuple(s.ref_seqs.shape)
+                != tuple(np.shape(ref_seqs))
+                or s.anc_path.shape[0] != tables.n_nodes
+                for s, d in zip(st, mesh.devices)):
+            raise ValueError("stream_tables are not this panel's tables on "
+                             "this mesh's cards, one a rank")
+    else:
+        per_dev = {d: StreamTables.from_host(ref_seqs, tables, col_maps, d)
+                   for d in dict.fromkeys(mesh.devices)}
+        st = [per_dev[d] for d in mesh.devices]
     n_nodes = tables.n_nodes
     ref_len = ref_seqs.shape[1]
 

@@ -3,8 +3,8 @@
     python -m rambl_tpu_torch.scripts.bench_sw_variants [--device D]
 
 Runs the production K1 (`ops.sw_cuda.sw_score_cuda`) and every S1 variant
-(`ops.sw_variants.VARIANTS`: threads per block x inner unroll x q staged in
-shared memory) on 131,072 pairs x 128 query rows x 161 window columns of
+(`ops.sw_variants.VARIANTS`: strips a pair x warps a block x packed 16-bit
+or 32-bit arithmetic, one instance of the strip kernel each) on 131,072 pairs x 128 query rows x 161 window columns of
 random codes (seed 0; q in 0..4, w in 0..3, as the JAX script draws them).
 Each is held against the port's NumPy oracle on its first 256 pairs before it
 is timed; a mismatch raises. Times are CUDA events, the median of 3 trials of
@@ -47,8 +47,8 @@ def run(pairs: int = PAIRS, L: int = L, W: int = W, *, device=None,
     ref = sw_batch(qn[:check], wn[:check], sc, want_dirs=False)[:3]
 
     kernels = [("prod-K1", functools.partial(sw_score_cuda, sc=sc))]
-    kernels += [(v.name, make_score_fn(sc, L, W, threads=v.threads,
-                                       unroll=v.unroll, stage_q=v.stage_q))
+    kernels += [(v.name, make_score_fn(sc, L, W, strips=v.strips,
+                                       warps=v.warps, arith=v.arith))
                 for v in VARIANTS]
     card = card_line(dev)
     cells = pairs * L * W

@@ -90,6 +90,37 @@ def test_align_batch_sw_rows(small_ds, small_index):
     _assert_records_equal(*_align_both(small_ds, small_index, sw_rows=104))
 
 
+def test_align_batch_row_check_only_for_direct_callers(small_ds, small_index,
+                                                       small_tax):
+    # a direct caller's batch is checked on the device; the stream checks
+    # its host lengths once and passes check_rows=False (no sync a batch)
+    reads, lens = small_ds.reads[:8].copy(), small_ds.read_lens[:8].copy()
+    lens[3] = 110
+    args = (_t(reads), _t(lens), TSeedTable.from_index(small_index, "cpu"),
+            _t(small_ds.ref_seqs), TConfig(sw_rows=104))
+    with pytest.raises(UserError, match="sw_rows=104"):
+        talign.align_batch(*args)
+    talign.align_batch(*args, check_rows=False)
+    calls = []
+    real = talign.check_sw_rows
+    talign.check_sw_rows = lambda *a: calls.append(a)
+    try:
+        tassemble.stream_align(small_ds.reads[:80], small_ds.read_lens[:80],
+                               small_index, small_ds.ref_seqs,
+                               small_ds.ref_lens, small_tax,
+                               TConfig(batch_size=32, sw_rows=104),
+                               device="cpu")
+        talign.align_batch(*args)
+    finally:
+        talign.check_sw_rows = real
+    assert len(calls) == 1                      # the direct call's only
+    with pytest.raises(UserError, match="sw_rows=104"):
+        tassemble.stream_align(reads, lens, small_index, small_ds.ref_seqs,
+                               small_ds.ref_lens, small_tax,
+                               TConfig(batch_size=32, sw_rows=104),
+                               device="cpu")
+
+
 def test_check_sw_rows():
     cfg = TConfig(sw_rows=104)
     talign.check_sw_rows(torch.tensor([100, 104], dtype=torch.int32), cfg)

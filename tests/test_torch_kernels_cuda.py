@@ -228,8 +228,8 @@ S1_L, S1_W = 128, 161                # the S1 sweep's shapes (odd W)
 def test_variant_kernel_matches_twin(dev, variant):
     q, w = planted_pairs(5, 4096 + 37, S1_L, S1_W)   # a ragged last block
     qt, wt = _on(dev, q, w)
-    fn = sv.make_score_fn(SC, S1_L, S1_W, threads=variant.threads,
-                          unroll=variant.unroll, stage_q=variant.stage_q)
+    fn = sv.make_score_fn(SC, S1_L, S1_W, strips=variant.strips,
+                          warps=variant.warps, arith=variant.arith)
     before = sv.LAUNCHES["variant"]
     got = fn(qt, wt)
     torch.cuda.synchronize()
@@ -237,6 +237,65 @@ def test_variant_kernel_matches_twin(dev, variant):
     _equal(got, tsw.sw_score(qt, wt, SC))
     for g, r in zip(got, sw_batch(q[:256], w[:256], SC, want_dirs=False)):
         np.testing.assert_array_equal(r, g[:256].cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000 + 37])
+@pytest.mark.parametrize("variant", sv.VARIANTS, ids=lambda v: v.name)
+def test_variant_kernel_ragged_sizes(dev, variant, n):
+    # fewer pairs than a block or a warp holds, and a ragged last block
+    q, w = planted_pairs(n, n, S1_L, S1_W)
+    q[: n // 4] = 4
+    qt, wt = _on(dev, q, w)
+    fn = sv.make_score_fn(SC, S1_L, S1_W, strips=variant.strips,
+                          warps=variant.warps, arith=variant.arith)
+    got = fn(qt, wt)
+    torch.cuda.synchronize()
+    _equal(got, tsw.sw_score(qt, wt, SC))
+
+
+def _s2_codes(seed, L, W, n, traps):
+    """Batch-minor int32 codes with homology planted in a third of the
+    pairs; with `traps`, the codes S2 compares as given in some blocks
+    only (4 == 4, -1, 256 against 0, 1000 on both sides; 256 and -1 in w
+    only, where the block's q codes all lie in 0..126)."""
+    rng = np.random.default_rng(seed)
+    qT = rng.integers(0, 5, (L, n)).astype(np.int32)
+    wT = rng.integers(0, 4, (W + L + 1, n)).astype(np.int32)
+    m = min(L, W) - 8
+    wT[2:2 + m, : n // 3] = qT[1:1 + m, : n // 3] % 4
+    if traps:
+        qT[:, 40:48], wT[:, 40:48] = 4, 4
+        qT[:, 48:56], wT[:, 48:56] = -1, -1
+        qT[:, 100:108], wT[:, 100:108] = 256, 0
+        qT[::2, 200:208], wT[::3, 200:208] = 1000, 1000
+        wT[:, 300:304], wT[:, 304:308] = 256, -1    # q's blocks in 0..126
+    return qT, wT
+
+
+@pytest.mark.parametrize("L,W", [(128, 160), (16, 24), (14, 25)])
+def test_pretransposed_kernel_trap_codes(dev, L, W):
+    qT, wT = _s2_codes(L + W, L, W, 4096 + 37, traps=True)
+    qt, wt = _on(dev, qT, wT)
+    key = sv.score_pretransposed(qt, wt, SC, W)
+    torch.cuda.synchronize()
+    q, w = qt.t().contiguous(), wt[:W].t().contiguous()
+    _equal([key], [tsw.sw_raw_key(q, w, SC)])
+    assert (key[100:108] == -(W + 2)).all()     # 256 never equals 0
+    assert (key[300:308] == -(W + 2)).all()
+    assert (key[40:56] > 0).all()               # 4 == 4 and -1 == -1 score
+    _equal([key[:256].cpu()], [tsw.sw_score_strips(
+        q[:256].cpu(), w[:256].cpu(), SC, sv.S2_VARIANT.strips,
+        raw_key=True)])
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000 + 37])
+def test_pretransposed_kernel_ragged_sizes(dev, n):
+    qT, wT = _s2_codes(n, L, W, n, traps=n > 256)
+    qt, wt = _on(dev, qT, wT)
+    key = sv.score_pretransposed(qt, wt, SC, W)
+    torch.cuda.synchronize()
+    _equal([key], [tsw.sw_raw_key(qt.t().contiguous(),
+                                  wt[:W].t().contiguous(), SC)])
 
 
 def test_pretransposed_kernel_matches_twin(dev):

@@ -283,6 +283,36 @@ def test_mesh_stream_equals_single_device_stream(small_ds, small_index,
         tassemble.stream_align(*args, mesh=_cpu_mesh(4), ring_shards=shards)
 
 
+def test_mesh_stream_with_prebuilt_tables(small_ds, small_index, small_tax):
+    # per-rank StreamTables uploaded before the stream, as the shards are:
+    # the outputs equal those of the stream that builds its own, bit for bit
+    ds = small_ds
+    cfg = TConfig(batch_size=64, sw_rows=104, shard_index=True)
+    args = (ds.reads[:150], ds.read_lens[:150], small_index, ds.ref_seqs,
+            ds.ref_lens, small_tax, cfg)
+    col_maps = build_col_maps(ds.ref_seqs, ds.ref_lens, small_tax.ref_taxon)
+    mesh = _cpu_mesh(4)
+    own = tassemble.stream_align(*args, mesh=mesh, col_maps=col_maps)
+    tabs = tassemble.StreamTables.from_host(ds.ref_seqs, small_tax, col_maps,
+                                          "cpu")
+    pre = tassemble.stream_align(*args, mesh=mesh, col_maps=col_maps,
+                                 stream_tables=[tabs] * 4)
+    for k in own[0]:
+        for x, y in zip(own[0][k], pre[0][k]):
+            assert torch.equal(x, y), k
+    for a, b in zip(own[1:], pre[1:]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="one a rank"):
+        tassemble.stream_align(*args, mesh=mesh, stream_tables=[tabs] * 3)
+    with pytest.raises(ValueError, match="one a rank"):
+        tassemble.stream_align(*args, mesh=mesh,
+                               stream_tables=[tabs._replace(
+                                   ref_seqs=tabs.ref_seqs[:-1])] * 4)
+    with pytest.raises(ValueError, match="need a mesh"):
+        tassemble.stream_align(*args, device="cpu", stream_tables=[tabs])
+
+
 # ---- (e) guards -------------------------------------------------------------
 
 def test_mesh_stream_guards(small_ds, small_index, small_tax):
