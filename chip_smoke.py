@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU: the read
-stream, the K1 bench path (bench, S1 variant sweep, S2 prep ablation), and
-the data-parallel read stream with a ring-sharded index on a mesh of four
-virtual ranks of the card (K4, the ring rotation).
+stream, the K1 bench path (bench, S1 variant sweep, S2 prep ablation), the
+data-parallel read stream with a ring-sharded index on a mesh of four
+virtual ranks of the card (K4, the ring rotation), and round 0 of the
+assembly (reads -> genes).
 
 Run from the repository root, with no arguments:
 
@@ -67,7 +68,19 @@ code is non-zero and no result line is printed:
    shard sizes (first held bit for bit against the plain rotation on them)
    beside the plain rotation and the bare `copy_` calls. On
    one card the four ranks share its memory, so K4 copies within HBM: its
-   times are not NVLink times.
+   times are not NVLink times;
+12. round: `assemble_round` (round 0: stream, slot selection, DP-means
+   clustering, consensus, genes) on cuda:0. (a) The dataset of
+   tests/test_assembly_parity.py, dense and with pileup_slot_nodes=1: the
+   genes equal the port's NumPy oracle field for field. (b) Config 2 at full
+   width: K1 and K2 + K3 must launch (counts set to 0 just before the round,
+   read just after); wall time, `_StageClock` stages (RAMBL_STAGE_TIMING=1)
+   and gene count; the same round with pileup_slot_nodes=1 gives the same
+   genes; the cluster stage (`assemble.cluster_stage`) on phase 4's stream
+   outputs, profiled (device busy share, five longest device operations)
+   and its host syncs counted, equals its rerun on CPU tensors for at least
+   16 leaves bit for bit (spawn and light leaves where present; the light
+   path also on 4 leaves directly).
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
 main path, error against the plain version, and the bound: the larger of the
@@ -235,7 +248,6 @@ def stream_syncs(run_stream, n_batches: int):
     as the second batch's step starts and closes as the last one's starts:
     n_batches - 2 whole turns of the stream's loop, none of its set-up or
     its end."""
-    import collections
     import warnings
 
     from rambl_tpu_torch.pipeline import assemble
@@ -261,12 +273,202 @@ def stream_syncs(run_stream, n_batches: int):
         assemble._align_bin_batch = real
     if seen[0] != n_batches:
         raise AssertionError(f"{seen[0]} batches streamed, not {n_batches}")
-    at = collections.Counter(
-        f"{w.filename.rsplit('rambl_tpu_torch/', 1)[-1]}:{w.lineno}"
-        for w in caught if "synchroniz" in str(w.message))
+    at = sync_lines(caught)
     turns = n_batches - 2
     return (sum(at.values()) / turns,
             {k: v / turns for k, v in at.items()})
+
+
+def sync_lines(caught):
+    """{source line: count} of the host-sync warnings among `caught`."""
+    import collections
+
+    return collections.Counter(
+        f"{w.filename.rsplit('rambl_tpu_torch/', 1)[-1]}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message))
+
+
+def syncs_of(run) -> tuple:
+    """(result of run(), {source line: host syncs}) as
+    torch.cuda.set_sync_debug_mode("warn") reports them over the whole
+    call."""
+    import warnings
+
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sync_lines(caught)
+
+
+def gene_fields(genes) -> list:
+    """Each gene as (sequence bytes, n_reads, leaf, cluster, taxon, offset)."""
+    return [(g.key(), g.n_reads, g.leaf, g.cluster, g.taxon, g.offset)
+            for g in genes]
+
+
+def phase_round(dev, ds, index, tables, col_maps, cfg, stream_out, card):
+    """Phase 12: round 0 of the assembly (`pipeline.assemble.assemble_round`)
+    on the card. (a) the dataset of tests/test_assembly_parity.py, dense and
+    in forced slot mode, against the port's NumPy oracle; (b) config 2 at
+    full width: the round's launches, wall time and stages, forced slot mode
+    against dense, and the cluster stage on the stream outputs of phase 4
+    (profiled, its host syncs counted) against its rerun on CPU tensors for
+    at least 16 leaves. Returns the round's kernel launches."""
+    import dataclasses
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.data.simulate import simulate_dataset
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.ops import sw_cuda
+    from rambl_tpu_torch.oracle.pipeline import assemble_round as oracle_round
+    from rambl_tpu_torch.pipeline import assemble as tassemble
+
+    # (a) the small dataset against the oracle, dense and forced slot
+    sm = simulate_dataset(n_species=3, refs_per_species=2, n_reads=400,
+                          seed=2, skewed_abundance=False)
+    sm_tax = build_taxonomy_tables(sm.tax_parent, sm.tax_depth, sm.ref_taxon)
+    sm_cfg = PipelineConfig(max_assembly_iters=2, batch_size=128)
+    sm_args = (sm.reads, sm.read_lens, sm.ref_seqs, sm.ref_lens, sm_tax)
+    want = gene_fields(oracle_round(*sm_args, sm_cfg, 0)[0])
+    for mode, c in (("dense", sm_cfg),
+                    ("slot", dataclasses.replace(sm_cfg,
+                                                 pileup_slot_nodes=1))):
+        got = gene_fields(tassemble.assemble_round(*sm_args, c, 0,
+                                                   device=dev)[0])
+        if got != want or not got:
+            raise AssertionError(f"round 0 ({mode}) differs from the NumPy "
+                                 f"oracle: {len(got)} vs {len(want)} genes")
+    say(f"[12 round] (a) {sm.reads.shape[0]} reads, {sm.ref_seqs.shape[0]} "
+        f"refs: the round's {len(want)} genes on the card, dense and with "
+        "pileup_slot_nodes=1, equal the NumPy oracle's (sequence, n_reads, "
+        "leaf, cluster, taxon, offset)")
+
+    # (b) config 2 at full width
+    args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tables)
+    os.environ["RAMBL_STAGE_TIMING"] = "1"
+    try:
+        sw_cuda.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        genes, stats = tassemble.assemble_round(
+            *args, cfg, 0, index=index, col_maps=col_maps, device=dev)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        launches = dict(sw_cuda.LAUNCHES)
+    finally:
+        del os.environ["RAMBL_STAGE_TIMING"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches["score"] <= 0 or launches["align"] <= 0:
+        raise AssertionError(f"the round launched {launches}: K1 and K2+K3 "
+                             "must launch")
+    merged, counts, span_diff, read_count = stream_out
+    if (not genes or stats["genes"] != len(genes)
+            or stats["aligned"] != int((merged["bins"] >= 0).sum())):
+        raise AssertionError(f"round stats {stats} for {len(genes)} genes")
+    t0 = time.perf_counter()
+    genes_s, stats_s = tassemble.assemble_round(
+        *args, dataclasses.replace(cfg, pileup_slot_nodes=1), 0, index=index,
+        col_maps=col_maps, device=dev)
+    slot_s = time.perf_counter() - t0
+    if gene_fields(genes_s) != gene_fields(genes):
+        raise AssertionError("config 2: forced slot mode's genes differ from "
+                             "the dense round's")
+
+    # the cluster stage alone, on phase 4's stream outputs
+    leaves = np.unique(tables.ref_taxon)
+
+    def stage():
+        return tassemble.cluster_stage(merged, counts, span_diff, read_count,
+                                       leaves, tables, cfg)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        card_out = stage()
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+    busy_ms = busy_ms_of(prof)
+    top = device_ops(prof)[:5]
+    _, stage_syncs = syncs_of(stage)
+
+    # the stage rerun on CPU tensors for >= 16 leaves, spawn and light
+    rc_leaf = read_count.cpu().numpy()[leaves]
+    spawn_l, light_l = leaves[rc_leaf > 0], leaves[rc_leaf == 0]
+    n_light = min(8, light_l.size)
+    pick = np.sort(np.concatenate([
+        spawn_l[np.linspace(0, spawn_l.size - 1, 16 - n_light).astype(int)],
+        light_l[:n_light]]))
+    pick = np.unique(pick)
+    if pick.size < 16:
+        raise AssertionError(f"only {pick.size} leaves to rerun on CPU")
+    cpu = {k: merged[k].cpu() for k in ("query", "ref_col", "bins")}
+    t0 = time.perf_counter()
+    cpu_out = tassemble.cluster_stage(cpu, counts.cpu(), span_diff.cpu(),
+                                      read_count.cpu(), pick, tables, cfg)
+    cpu_s = time.perf_counter() - t0
+    at = np.searchsorted(leaves, pick)
+    names = ("called", "emit", "n_reads", "kact", "n_mem", "mh.called",
+             "mh.emit", "mh.n_reads", "mh.n_cols")
+
+    def arrays(out):
+        cons, kact, n_mem, mh = out
+        return [*cons, kact, n_mem, *mh]
+
+    for name, g, c in zip(names, arrays(card_out), arrays(cpu_out)):
+        if g.dtype != c.dtype or not np.array_equal(g[at], c):
+            raise AssertionError(f"cluster stage {name}: the card differs "
+                                 f"from the CPU rerun on leaves {pick}")
+    # the light path on the card and on CPU, whether or not config 2 has
+    # leaves without exclusive reads
+    lt = torch.from_numpy(pick[:4].astype(np.int32))
+    anc = torch.from_numpy(tables.anc_path)
+    dep = torch.from_numpy(tables.depth)
+    light_card = tassemble.cluster_round0_core(
+        merged["query"], merged["ref_col"], merged["bins"], counts, span_diff,
+        read_count, lt.to(dev), anc.to(dev), dep.to(dev), cfg, spawn=False)
+    light_cpu = tassemble.cluster_round0_core(
+        cpu["query"], cpu["ref_col"], cpu["bins"], counts.cpu(),
+        span_diff.cpu(), read_count.cpu(), lt, anc, dep, cfg, spawn=False)
+    for g, c in zip(arrays(light_card), arrays(light_cpu)):
+        if not torch.equal(g.cpu(), c):
+            raise AssertionError("light cluster path: the card differs from "
+                                 "CPU")
+    kact = card_out[1]
+    say(f"[12 round] (b) config 2 round 0 ({ds.reads.shape[0]} reads, "
+        f"{leaves.size} leaves, {int((rc_leaf > 0).sum())} with exclusive "
+        f"reads): {len(genes)} genes; {round_s:.3f} s wall; stages "
+        + ", ".join(f"{k[2:]} {v:.2f} s" for k, v in stats.items()
+                    if k.startswith("t_"))
+        + f"; launches {launches}; peak device memory {peak_gb:.2f} GB; "
+        f"clusters a leaf {int(kact.min())}..{int(kact.max())} (sum "
+        f"{int(kact.sum())}) [{card}]")
+    say(f"    forced slot mode (pileup_slot_nodes=1): {stats_s['n_leaves']} "
+        f"leaves, the same {len(genes_s)} genes, {slot_s:.3f} s wall [{card}]")
+    say(f"    cluster stage on the card ({leaves.size} leaves, "
+        f"max_bin_reads {cfg.max_bin_reads}, max_poly_cols "
+        f"{cfg.max_poly_cols}, max_clusters_per_bin "
+        f"{cfg.max_clusters_per_bin}, profiled): {stage_s * 1e3:.1f} ms wall, "
+        f"device busy {busy_ms:.1f} ms = {100 * busy_ms / (stage_s * 1e3):.1f}"
+        f"% [{card}]; host syncs {sum(stage_syncs.values())} ("
+        + ", ".join(f"{k} x{v}" for k, v in sorted(stage_syncs.items()))
+        + "); five longest device operations:")
+    for e in top:
+        say(f"      {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{e.count:6d} calls  {e.key[:90]}")
+    say(f"    cluster stage rerun on CPU tensors for {pick.size} leaves "
+        f"({int((rc_leaf[at] > 0).sum())} spawn, {int((rc_leaf[at] == 0).sum())}"
+        f" light) in {cpu_s:.1f} s: ConsensusOut, kact, n_mem and MinorHap "
+        f"equal the card's bit for bit; the light path (spawn=False) on "
+        f"{lt.numel()} leaves too")
+    return launches
 
 
 def require_equal(what: str, got, ref) -> int:
@@ -1097,6 +1299,10 @@ def main() -> None:
         f"{k4['copy_']:.3f} ms; bound "
         f"{2 * shard_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes) [{card}]")
     del shards4, rb4, lb4, st4
+
+    # ---- 12. round 0 of the assembly ---------------------------------------
+    phase_round(dev, ds, index, tables, col_maps, cfg,
+                (merged, counts, span_diff, read_count), card)
 
     peak = int32_ops_per_s(dev)
     n_path = PAIRS

@@ -5,7 +5,7 @@ outputs bit for bit and imports nothing of it (nor jax). The host layers it
 needs are its own copies, under the reference's module names, held equal to
 the originals by tests/test_torch_host_layers.py: `config`, `utils.errors`,
 `io.pack`, `index.{builder,taxonomy,colmap}`, `data.simulate` and
-`oracle.{sw,seed,align}`.
+`oracle.{sw,seed,align,binning,cluster,consensus,pipeline}`.
 
 Layout mirrors `rambl_tpu`:
 
@@ -17,9 +17,14 @@ Layout mirrors `rambl_tpu`:
   inputs (S2) (`csrc/sw_variants.cu`), for the bench scripts;
 - `ops.seed`: k-mer hashing, CSR probe, candidate voting, window gather;
 - `pipeline.align` / `binning` / `pileup`: the per-batch align step, LCA
-  binning and node-space pileup accumulators;
+  binning, node-space and slot-compacted pileup accumulators and their
+  per-leaf merge;
+- `pipeline.cluster` / `consensus`: membership tables, features and
+  DP-means over a block of leaves; cluster and minor-haplotype consensus;
 - `pipeline.assemble.stream_align`: the batch stream over a whole read set,
   on one device or data-parallel over a `parallel.mesh.DataMesh`;
+- `pipeline.assemble.assemble_round`: round 0 of the assembly on one
+  device (stream, slot selection, clustering, consensus) -> genes;
 - `parallel.ring` / `ring_dma` / `steps`: the ring-sharded seed index, its
   rotation K4 (`csrc/ring.cu`) with the plain `copy_` version, and the mesh
   stream's steps;

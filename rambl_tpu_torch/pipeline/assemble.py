@@ -1,19 +1,27 @@
-"""The read stream of the assembly driver: align, bin and pile up every read.
+"""Assembly on the device: the read stream and round 0 of the assembly.
 
-Port of the stream of `rambl_tpu/pipeline/assemble.py` (`_align_bin_batch`,
-`_pileup_accum`, `_read_count_accum`, `_pad_batches`, `_stream_align` and,
-over a mesh of ranks, `_stream_align_mesh`), bit-identical to it. Reads go
-through the align + bin step in fixed-size batches (the last one padded
-with empty reads, which bin to -1); per-read outputs are kept in
-preallocated device buffers and the node-space pileup accumulators are
-summed on the device.
+Port of `rambl_tpu/pipeline/assemble.py`, bit-identical to it: the stream
+(`_align_bin_batch`, `_pileup_accum`, `_read_count_accum`, `_pad_batches`,
+`_stream_align` and, over a mesh of ranks, `_stream_align_mesh`) and the
+round (`assemble_round_jax` as `assemble_round`, with
+`cluster_round0_members`, `cluster_round0_core`, `_genes_from_consensus` and
+`_dedupe_cap`). Reads go through the align + bin step in fixed-size batches
+(the last one padded with empty reads, which bin to -1); per-read outputs
+are kept in preallocated device buffers and the node-space pileup
+accumulators are summed on the device. Round 0 then discovers variants per
+leaf bin (DP-means -> variant-aware consensus); panel management (gene
+lists, dedupe) is host logic on tiny data.
 
-Clustering, consensus, the refinement rounds and polish are not ported yet.
+The refinement rounds, polish and the round on a mesh are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import os
+import sys
+import time
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -23,11 +31,64 @@ from rambl_tpu_torch.device import resolve
 from rambl_tpu_torch.index.colmap import build_col_maps
 from rambl_tpu_torch.ops.seed import SeedTable
 from rambl_tpu_torch.pipeline.align import align_batch
+from rambl_tpu_torch.index.builder import build_seed_index
+from rambl_tpu_torch.oracle.pipeline import Gene
 from rambl_tpu_torch.pipeline.binning import bin_batch
-from rambl_tpu_torch.pipeline.pileup import node_pileup
+from rambl_tpu_torch.pipeline.cluster import (
+    _BIG,
+    bin_sort,
+    dp_means_leaves,
+    leaf_features_dense,
+    member_table_ranges,
+)
+from rambl_tpu_torch.pipeline.consensus import (
+    ConsensusOut,
+    MinorHap,
+    _chain_read_count,
+    cluster_consensus_leaves,
+    minor_haplotype_leaves,
+)
+from rambl_tpu_torch.pipeline.pileup import (
+    leaf_pileup,
+    leaf_pileup_slots,
+    node_pileup,
+    node_slot_pileup,
+    polymorphic_mask,
+)
 from rambl_tpu_torch.utils.errors import UserError
 
 RETAINED = ("query", "ref_col", "bins", "score", "ref", "strand")
+
+
+class _StageClock:
+    """Accumulates wall time per named stage when the environment sets
+    RAMBL_STAGE_TIMING=1 (read as the clock is made), else does nothing.
+    Diagnostic only: a mark synchronizes the card its tensors are on, which
+    serializes the dispatch pipeline, so leave it off for benchmarks."""
+
+    def __init__(self):
+        self.on = bool(int(os.environ.get("RAMBL_STAGE_TIMING", "0")))
+        self.t = {}
+        self._last = time.time()
+
+    def mark(self, name, *sync):
+        if not self.on:
+            return
+        for x in sync:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                torch.cuda.synchronize(x.device)
+        now = time.time()
+        dt = now - self._last
+        self.t[name] = round(self.t.get(name, 0.0) + dt, 2)
+        self._last = now
+        if dt > 5.0:
+            # live progress for long runs: stage boundaries as they happen
+            # (stderr; the stats dict still gets the per-round totals)
+            print(f"[stage] {name} +{dt:.0f}s", file=sys.stderr, flush=True)
+
+    def into(self, stats):
+        if self.on:
+            stats.update({f"t_{k}": v for k, v in self.t.items()})
 
 
 class StreamTables(NamedTuple):
@@ -346,3 +407,319 @@ def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
     merged["ref_col"] = rbuf
     merged["bins_sh"] = bbuf
     return merged, counts, span_diff, read_count
+
+
+# --------------------------------------------------------------------------
+# round 0: clustering + consensus per leaf bin
+# --------------------------------------------------------------------------
+
+def cluster_round0_members(qm, rcm, bins_m, mvalid, counts, span_diff,
+                           read_count, leaves, anc_path, depth,
+                           cfg: PipelineConfig, node2slot=None,
+                           spawn: bool = True):
+    """Round-0 clustering + consensus from pre-gathered member tensors.
+
+    The post-gather half of cluster_round0_core. qm/rcm: (NL, M, L) member
+    query codes / projected columns (int32); bins_m: (NL, M) member bin
+    nodes; mvalid: (NL, M). node2slot switches the pileup accumulators to
+    slot-compacted active-node space (full-Greengenes-scale taxonomies; see
+    pipeline.pileup) - bitwise identical where slots exist. Features come
+    from the dense featurizer (cluster.leaf_features_dense).
+
+    spawn=False is the LIGHT path for leaves with no leaf-exclusive reads:
+    their can_seed mask is all-false, so DP-means provably degenerates to
+    assign-all-to-cluster-0 / kact=1 - skip features + DP entirely. Bitwise
+    identical to spawn=True on such leaves."""
+    ref_len = counts.shape[1] // 4   # counts rows are FLAT (node_pileup)
+    if node2slot is None:
+        leaf_counts, leaf_span = leaf_pileup(
+            counts, span_diff, leaves, anc_path, depth, cfg.bin_share_depth)
+        excl_counts = counts[leaves.long()].reshape(-1, ref_len, 4)
+    else:
+        leaf_counts, leaf_span = leaf_pileup_slots(
+            counts, span_diff, node2slot, leaves, anc_path, depth,
+            cfg.bin_share_depth)
+        ls = node2slot[leaves.long()]
+        excl_counts = torch.where(
+            (ls >= 0)[:, None, None],
+            counts[torch.clamp(ls, 0, counts.shape[0] - 1).long()].reshape(
+                -1, ref_len, 4), 0)
+    # consensus mask is UNCAPPED (capping would crowd out late discriminating
+    # columns); the feature columns below take the first max_poly_cols of it
+    pm = polymorphic_mask(
+        leaf_counts, cfg.min_coverage, cfg.poly_min_minor_count,
+        cfg.poly_minor_frac_num, cfg.poly_minor_frac_den, ref_len,
+    )
+    if spawn:
+        cols = torch.arange(ref_len, dtype=torch.int32, device=pm.device)
+        key = torch.where(pm, cols[None, :], _BIG)
+        pol_cols = torch.topk(key, cfg.max_poly_cols, dim=1, largest=False,
+                              sorted=True).values            # ascending
+        pol_valid = pol_cols < _BIG
+        pol_cols = torch.where(pol_valid, pol_cols, 0)
+
+        feat = leaf_features_dense(qm, rcm, mvalid, pol_cols, pol_valid,
+                                   ref_len)
+        can_seed = (bins_m == leaves[:, None]) & mvalid  # leaf-exclusive only
+        dp = dp_means_leaves(feat, can_seed, cfg)
+        assign, kact = dp.assign, dp.kact
+    else:
+        assign = torch.zeros(mvalid.shape, dtype=torch.int32,
+                             device=mvalid.device)
+        kact = torch.ones((mvalid.shape[0],), dtype=torch.int32,
+                          device=mvalid.device)
+
+    cons = cluster_consensus_leaves(
+        qm, rcm, mvalid, assign, pm, leaf_counts, leaf_span, cfg
+    )
+    # node-space counts at the leaf itself = leaf-EXCLUSIVE pileup
+    mh = minor_haplotype_leaves(excl_counts, leaf_counts, leaf_span, cfg)
+    n_mem = _chain_read_count(read_count, leaves, anc_path, depth,
+                              cfg.bin_share_depth)
+    return cons, kact, n_mem, mh
+
+
+def cluster_round0_core(query, ref_col, bins, counts, span_diff,
+                        read_count, leaves, anc_path, depth,
+                        cfg: PipelineConfig, node2slot=None,
+                        spawn: bool = True, bin_ranges=None):
+    """Round-0 clustering + consensus over a set of leaves, on the device of
+    the tensors given.
+
+    bin_ranges: optional precomputed (order, node_start, node_end) from
+    cluster.bin_sort - `cluster_stage` sorts the B reads once for all
+    of its blocks. Membership is range-based (O(NL*D*M), not O(NL*B)),
+    its width capped at B so small runs keep the dense table's shapes."""
+    if bin_ranges is None:
+        order, nstart, nend = bin_sort(bins, anc_path.shape[0])
+    else:
+        order, nstart, nend = bin_ranges
+    midx, mvalid = member_table_ranges(
+        order, nstart, nend, leaves, anc_path, depth,
+        min(cfg.max_bin_reads, bins.shape[0]), cfg.bin_share_depth)
+    # ref_col may arrive int16 (streaming retention): widen only AFTER the
+    # member gather, so the full-read-range array never exists in int32
+    mi = midx.long()
+    qm = query[mi]                                       # (NL, M, L)
+    rcm = ref_col[mi].to(torch.int32)
+    return cluster_round0_members(
+        qm, rcm, bins[mi], mvalid, counts, span_diff, read_count,
+        leaves, anc_path, depth, cfg, node2slot=node2slot, spawn=spawn)
+
+
+def _genes_from_consensus(called, emit, nk, kact, leaves, n_mem, cfg,
+                          round_idx, orig_taxon_of_node=None, mh=None):
+    """Host compaction of consensus tensors into Gene records (oracle order).
+
+    mh: optional MinorHap arrays (host, leaf-sliced) - one extra
+    frequency-phased gene per qualifying leaf, cluster id
+    cfg.max_clusters_per_bin (after all real clusters, as in the oracle)."""
+    genes: List[Gene] = []
+    called = np.asarray(called)
+    emit = np.asarray(emit)
+    nk = np.asarray(nk)
+    kact = np.asarray(kact)
+    n_mem = np.asarray(n_mem)
+    for li, leaf in enumerate(np.asarray(leaves).tolist()):
+        if n_mem[li] < cfg.min_cluster_reads:
+            continue
+        taxon = (int(leaf) if orig_taxon_of_node is None
+                 else int(orig_taxon_of_node[leaf]))
+        for k in range(int(kact[li])):
+            if nk[li, k] < cfg.min_cluster_reads:
+                continue
+            em = emit[li, k]
+            seq = called[li, k][em].astype(np.int8)
+            if seq.shape[0] == 0:
+                continue
+            off = int(np.argmax(em))  # first emitted column
+            genes.append(Gene(seq=seq, n_reads=int(nk[li, k]), leaf=int(leaf),
+                              cluster=k, round_born=round_idx, taxon=taxon,
+                              offset=off))
+        # max(1, ...) mirrors the oracle's guard: minorhap_min_cols == 0 with
+        # zero qualifying columns must not emit a bogus backbone-duplicate gene
+        if mh is not None and int(mh.n_cols[li]) >= max(1, cfg.minorhap_min_cols):
+            em = np.asarray(mh.emit[li])
+            seq = np.asarray(mh.called[li])[em].astype(np.int8)
+            nk_mh = int(mh.n_reads[li])
+            if seq.shape[0] and nk_mh >= cfg.min_cluster_reads:
+                genes.append(Gene(
+                    seq=seq, n_reads=nk_mh, leaf=int(leaf),
+                    cluster=cfg.max_clusters_per_bin, round_born=round_idx,
+                    taxon=taxon, offset=int(np.argmax(em))))
+    return genes
+
+
+def _dedupe_cap(genes: List[Gene], cfg) -> List[Gene]:
+    bykey = {}
+    for g in genes:
+        kk = g.key()
+        if kk not in bykey or g.n_reads > bykey[kk].n_reads:
+            if kk in bykey:
+                g = dataclasses.replace(g, n_reads=max(g.n_reads, bykey[kk].n_reads))
+            bykey[kk] = g
+    out = list(bykey.values())
+    out.sort(key=lambda g: (-g.n_reads, g.leaf, g.cluster))
+    return out[: cfg.max_genes]
+
+
+def _active_leaves(rc_host: np.ndarray, tables, cfg: PipelineConfig):
+    """Slot mode's leaves (host): those whose chain holds min_cluster_reads,
+    with zero-exclusive duplicates collapsed; and their node2slot map and
+    slot count.
+
+    Inactive leaves produce no genes in the dense path either (n_mem <
+    min_cluster_reads), so outputs match. A leaf with no reads binned AT it
+    draws members and pileups solely from its ancestor-window nodes; leaves
+    sharing that exact node set (and depth) are bitwise-identical clustering
+    problems with can_seed all-false, so they emit byte-identical genes that
+    _dedupe_cap collapses to the LOWEST leaf id anyway. Only that
+    representative is kept: output-identical (dedupe keeps first-by-leaf on
+    ties; np.unique gives ascending ids)."""
+    anc = tables.anc_path
+    leaves_all = np.unique(tables.ref_taxon)
+    dd = np.arange(anc.shape[1])
+    dl = tables.depth[leaves_all][:, None]
+    usem = (dd[None, :] <= dl) & (dd[None, :] >= dl - cfg.bin_share_depth)
+    n_mem_leaf = (rc_host[anc[leaves_all]] * usem).sum(axis=1)
+    leaves = leaves_all[n_mem_leaf >= cfg.min_cluster_reads]
+    excl0 = rc_host[leaves] == 0
+    if excl0.any():
+        dlv0 = tables.depth[leaves][:, None]
+        win0 = (dd[None, :] <= dlv0) & (dd[None, :] >= dlv0
+                                        - cfg.bin_share_depth)
+        ch0 = anc[leaves]
+        sig = np.where(win0 & (rc_host[ch0] > 0), ch0, -1)
+        sig = np.concatenate([np.sort(sig, axis=1),
+                              tables.depth[leaves][:, None]], axis=1)
+        _, first_idx = np.unique(sig[excl0], axis=0, return_index=True)
+        keep = ~excl0
+        keep[np.nonzero(excl0)[0][first_idx]] = True
+        leaves = leaves[keep]
+    # slots for every chain node inside the share window with any reads
+    dlv = tables.depth[leaves][:, None]
+    win = (dd[None, :] <= dlv) & (dd[None, :] >= dlv - cfg.bin_share_depth)
+    need = np.zeros(tables.n_nodes, bool)
+    need[anc[leaves][win]] = True
+    need &= rc_host > 0
+    ids = np.nonzero(need)[0].astype(np.int32)
+    node2slot = np.full(tables.n_nodes, -1, np.int32)
+    node2slot[ids] = np.arange(ids.size, dtype=np.int32)
+    n_slots = max(64, -(-max(ids.size, 1) // 64) * 64)
+    return leaves, node2slot, n_slots
+
+
+def cluster_stage(rec, counts, span_diff, read_count, leaves, tables,
+                  cfg: PipelineConfig, node2slot=None):
+    """Cluster + consensus for `leaves` (host int array) on the device of
+    the stream's outputs `rec`; returns host arrays (cons ConsensusOut,
+    kact, n_mem, mh MinorHap) in ascending leaf order.
+
+    Leaves split by exclusivity: those with no reads binned AT them have an
+    all-false can_seed mask, so DP-means provably assigns everything to
+    cluster 0 - they run the LIGHT path (no features, no DP; spawn=False),
+    bitwise identical. cfg.cluster_leaf_block bounds the leaves of one call:
+    the per-leaf member tensors are (NL, max_bin_reads, ...); leaves are
+    independent, so blocking is bitwise-neutral. The B-read bin sort is
+    made once for every block."""
+    dev = rec["bins"].device
+    rc_leaf = read_count.cpu().numpy()[leaves]
+    sets = [(leaves[rc_leaf > 0], True), (leaves[rc_leaf == 0], False)]
+    blk = cfg.cluster_leaf_block if cfg.cluster_leaf_block > 0 else leaves.size
+    blk = max(1, blk)
+    anc = torch.as_tensor(tables.anc_path, dtype=torch.int32).to(dev)
+    dep = torch.as_tensor(tables.depth, dtype=torch.int32).to(dev)
+    n2s = (None if node2slot is None else
+           torch.as_tensor(node2slot, dtype=torch.int32).to(dev))
+    bin_ranges = bin_sort(rec["bins"], tables.n_nodes)
+    parts, proc = [], []
+    for lset, spawn in sets:
+        for s in range(0, lset.size, blk):
+            lb = lset[s: s + blk]
+            out = cluster_round0_core(
+                rec["query"], rec["ref_col"], rec["bins"], counts, span_diff,
+                read_count, torch.from_numpy(lb.astype(np.int32)).to(dev),
+                anc, dep, cfg, n2s, spawn=spawn, bin_ranges=bin_ranges)
+            cons_b, kact_b, n_mem_b, mh_b = out
+            proc.append(lb)
+            parts.append(([x.cpu().numpy() for x in cons_b],
+                          kact_b.cpu().numpy(), n_mem_b.cpu().numpy(),
+                          [x.cpu().numpy() for x in mh_b]))
+    order = np.argsort(np.concatenate(proc), kind="stable")  # ascending ids
+    cons = ConsensusOut(*(np.concatenate([p[0][i] for p in parts])[order]
+                          for i in range(3)))
+    kact = np.concatenate([p[1] for p in parts])[order]
+    n_mem = np.concatenate([p[2] for p in parts])[order]
+    mh = MinorHap(*(np.concatenate([p[3][i] for p in parts])[order]
+                    for i in range(4)))
+    return cons, kact, n_mem, mh
+
+
+def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
+                   round_idx=0, orig_taxon_of_node=None, index=None,
+                   n_bits=None, aux_out=None, mesh=None, col_maps=None, *,
+                   device=None):
+    """One align -> bin -> cluster -> consensus round on `device` (the first
+    CUDA card when None; "cpu" for the plain PyTorch path): the device
+    version of oracle.pipeline.assemble_round. Returns (genes, stats).
+
+    `index` lets cohort runs share one prebuilt index across samples;
+    `n_bits` pins the hash-table geometry. `aux_out`, if a dict, receives
+    the node-space pileup accumulator ("node_counts"), or in slot mode the
+    slot accumulators and their host node2slot map ("slot_counts"), for the
+    final polish pass. The round on a mesh is not ported (`mesh` raises).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "assemble_round(mesh=...) is not ported yet: the round on a mesh "
+            "(make_slot_pileup_step, make_cluster_step) is ROADMAP item 15")
+    device = resolve(device)
+    clock = _StageClock()
+    if index is None:
+        index = build_seed_index(ref_seqs, ref_lens, k=cfg.k, n_bits=n_bits)
+    clock.mark("index")
+    rec, counts, span_diff, read_count = stream_align(
+        reads, lens, index, ref_seqs, ref_lens, tables, cfg,
+        col_maps=col_maps, device=device)
+    clock.mark("align", rec["query"], counts, read_count)
+    node2slot = None
+    if counts is None:
+        # slot-compacted active-node mode (n_nodes > cfg.pileup_slot_nodes):
+        # active leaves chosen by chain read count, slots for nodes on their
+        # ancestor chains that hold reads; one scatter pass builds the
+        # compacted accumulators
+        leaves, node2slot, n_slots = _active_leaves(
+            read_count.cpu().numpy(), tables, cfg)
+        if leaves.size == 0:
+            return [], dict(round=round_idx,
+                            aligned=int((rec["bins"] >= 0).sum()),
+                            n_leaves=0, genes=0)
+        counts, span_diff = node_slot_pileup(
+            rec["query"], rec["ref_col"], rec["bins"],
+            torch.from_numpy(node2slot).to(device), n_slots,
+            ref_seqs.shape[1])
+        if aux_out is not None:
+            aux_out["slot_counts"] = (counts, node2slot)
+        clock.mark("slot_pileup", counts)
+    else:
+        leaves = np.unique(tables.ref_taxon)
+        if aux_out is not None:
+            aux_out["node_counts"] = counts
+    cons, kact, n_mem, mh = cluster_stage(
+        rec, counts, span_diff, read_count, leaves, tables, cfg, node2slot)
+    clock.mark("cluster")
+    genes = _genes_from_consensus(
+        cons.called, cons.emit, cons.n_reads, kact, leaves, n_mem, cfg,
+        round_idx, orig_taxon_of_node, mh=mh,
+    )
+    stats = dict(
+        round=round_idx,
+        aligned=int((rec["bins"] >= 0).sum()),
+        n_leaves=int(leaves.size),
+        genes=0,
+    )
+    genes = _dedupe_cap(genes, cfg)
+    stats["genes"] = len(genes)
+    clock.mark("genes_host")
+    clock.into(stats)
+    return genes, stats

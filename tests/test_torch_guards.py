@@ -1,8 +1,8 @@
 """Guards around the port: it stands alone, and never falls back quietly.
 
-(a) `rambl_tpu_torch` streams reads and runs its bench with both jax and the
-    JAX package `rambl_tpu` made unimportable, using only its own copies of
-    the host layers; no file of the port and no line of `chip_smoke.py`
+(a) `rambl_tpu_torch` streams reads, runs round 0 of the assembly and runs
+    its bench with both jax and the JAX package `rambl_tpu` made
+    unimportable, using only its own copies of the host layers; no file of the port and no line of `chip_smoke.py`
     imports `rambl_tpu`;
 (b) `chip_smoke.py` fails in its first phase where there is no CUDA device,
     and also when it stands alone without the repository; the port's entry
@@ -62,10 +62,19 @@ m2 = stream_align(ds.reads, ds.read_lens, idx, ds.ref_seqs, ds.ref_lens, tax,
     dataclasses.replace(cfg, shard_index=True),
     mesh=mesh.data_mesh(devices=["cpu"] * 2))
 assert torch.equal(m2[0]["bins"][1], merged["bins"])
+from rambl_tpu_torch.oracle.pipeline import assemble_round as oracle_round
+from rambl_tpu_torch.pipeline.assemble import assemble_round
+genes, stats = assemble_round(ds.reads, ds.read_lens, ds.ref_seqs,
+    ds.ref_lens, tax, cfg, device="cpu")
+want, _ = oracle_round(ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tax,
+    cfg, 0)
+assert genes and [(g.key(), g.n_reads, g.leaf) for g in genes] == [
+    (g.key(), g.n_reads, g.leaf) for g in want], (genes, want)
+assert stats["genes"] == len(genes) and stats["aligned"] > 0
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "rambl_tpu")
             and sys.modules[m] is not None]
-print("OK", int((merged["ref"] >= 0).sum()))
+print("OK", int((merged["ref"] >= 0).sum()), len(genes))
 """
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr[-3000:]
@@ -97,7 +106,7 @@ def test_card_tests_skip_here_with_reason():
               "no:cacheprovider", "tests/test_torch_kernels_cuda.py"],
              env_extra={"PYTHONPATH": REPO})
     assert r.returncode == 0, r.stdout[-3000:]
-    assert "148 skipped" in r.stdout and "passed" not in r.stdout
+    assert "158 skipped" in r.stdout and "passed" not in r.stdout
     assert "needs an NVIDIA GPU with CUDA" in r.stdout
 
 
@@ -140,22 +149,26 @@ def test_port_imports_no_rambl_tpu():
 
 
 @pytest.mark.parametrize("entry", ["bench", "bench_sw_variants",
-                                   "ablate_prep", "stream_align", "data_mesh"])
+                                   "ablate_prep", "stream_align", "data_mesh",
+                                   "assemble_round"])
 def test_entry_points_need_the_card_by_default(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points would run")
     from rambl_tpu_torch import bench
     from rambl_tpu_torch.parallel.mesh import data_mesh
-    from rambl_tpu_torch.pipeline.assemble import stream_align
+    from rambl_tpu_torch.pipeline.assemble import assemble_round, stream_align
     from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
     from rambl_tpu_torch.config import PipelineConfig
 
     run = {"bench": bench.run, "bench_sw_variants": bench_sw_variants.run,
            "ablate_prep": ablate_prep.run, "data_mesh": data_mesh}.get(entry)
+    args = (np.zeros((0, 128), np.int8), np.zeros(0, np.int32), None,
+            np.zeros((1, 8), np.int8), np.ones(1, np.int32), None,
+            PipelineConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if run is not None:
             run()
+        elif entry == "stream_align":
+            stream_align(*args)
         else:
-            stream_align(np.zeros((0, 128), np.int8), np.zeros(0, np.int32),
-                         None, np.zeros((1, 8), np.int8), np.ones(1, np.int32),
-                         None, PipelineConfig())
+            assemble_round(args[0], args[1], *args[3:5], None, args[6])

@@ -2,8 +2,9 @@
 
 `rambl_tpu_torch` imports nothing of `rambl_tpu`; it carries copies of the
 JAX-free modules it needs (config, utils.errors, io.pack, index.{builder,
-taxonomy,colmap}, data.simulate, oracle.{sw,seed,align}). Each copy is held
-here against its original: same inputs, identical outputs, no tolerance.
+taxonomy,colmap}, data.simulate, oracle.{sw,seed,align,binning,cluster,
+consensus,pipeline}). Each copy is held here against its original: same
+inputs, identical outputs, no tolerance.
 """
 
 import dataclasses
@@ -18,6 +19,10 @@ from rambl_tpu.index import colmap as jcolmap
 from rambl_tpu.index import taxonomy as jtax
 from rambl_tpu.io import pack as jpack
 from rambl_tpu.oracle import align as jalign
+from rambl_tpu.oracle import binning as jobin
+from rambl_tpu.oracle import cluster as jocluster
+from rambl_tpu.oracle import consensus as jocons
+from rambl_tpu.oracle import pipeline as jopipe
 from rambl_tpu.oracle import seed as jseed
 from rambl_tpu.oracle import sw as jsw
 from rambl_tpu.utils.errors import UserError as JUserError
@@ -28,6 +33,10 @@ from rambl_tpu_torch.index import colmap as tcolmap
 from rambl_tpu_torch.index import taxonomy as ttax
 from rambl_tpu_torch.io import pack as tpack
 from rambl_tpu_torch.oracle import align as talign
+from rambl_tpu_torch.oracle import binning as tobin
+from rambl_tpu_torch.oracle import cluster as tocluster
+from rambl_tpu_torch.oracle import consensus as tocons
+from rambl_tpu_torch.oracle import pipeline as topipe
 from rambl_tpu_torch.oracle import seed as tseed
 from rambl_tpu_torch.oracle import sw as tsw
 from rambl_tpu_torch.utils.errors import UserError as TUserError
@@ -178,3 +187,99 @@ def test_pack_and_errors():
     _assert_same(jpack.BASE_TO_CODE, tpack.BASE_TO_CODE)
     assert issubclass(TUserError, ValueError)
     assert TUserError is not JUserError
+
+
+def test_oracle_assemble_round(both_ds):
+    ds, _ = both_ds
+    tax = jtax.build_taxonomy_tables(ds.tax_parent, ds.tax_depth,
+                                     ds.ref_taxon)
+    args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tax)
+    g_ref, s_ref = jopipe.assemble_round(*args, jconfig.PipelineConfig(), 0)
+    g_got, s_got = topipe.assemble_round(*args, tconfig.PipelineConfig(), 0)
+    assert len(g_ref) > 0
+    _assert_same(s_ref, s_got, "stats")
+    assert [f.name for f in dataclasses.fields(topipe.Gene)] == [
+        f.name for f in dataclasses.fields(jopipe.Gene)]
+    assert len(g_got) == len(g_ref)
+    for r, g in zip(g_ref, g_got):
+        assert type(g) is topipe.Gene
+        _assert_same(dataclasses.asdict(r), dataclasses.asdict(g), "gene")
+        assert g.key() == r.key()
+
+
+N_LEAF_READS = 150
+
+
+@pytest.fixture(scope="module")
+def leaf_inputs(both_ds):
+    """The first reads of a dataset aligned and binned by the original
+    oracle, and for each leaf its members' (query, ref_col)."""
+    ds, _ = both_ds
+    jcfg = jconfig.PipelineConfig()
+    tax = jtax.build_taxonomy_tables(ds.tax_parent, ds.tax_depth,
+                                     ds.ref_taxon)
+    idx = jbuilder.build_seed_index(ds.ref_seqs, ds.ref_lens, k=jcfg.k)
+    n = N_LEAF_READS
+    res = jalign.align_reads(ds.reads[:n], ds.read_lens[:n], ds.ref_seqs,
+                             idx, jcfg)
+    bins = jobin.bin_reads(res, tax, jcfg)
+    return ds, tax, res, bins
+
+
+def test_oracle_binning(leaf_inputs):
+    ds, tax, res, bins = leaf_inputs
+    ttax = ttax_tables(ds)
+    tres = talign.AlignmentResult(**dataclasses.asdict(res))
+    _assert_same(bins, tobin.bin_reads(tres, ttax, tconfig.PipelineConfig()),
+                 "bin_reads")
+    for leaf in np.unique(tax.ref_taxon).tolist() + [0]:
+        for share in (None, 3, 1, 0):
+            _assert_same(jobin.leaf_membership(bins, leaf, tax, share),
+                         tobin.leaf_membership(bins, leaf, ttax, share),
+                         f"leaf_membership {leaf} {share}")
+
+
+def ttax_tables(ds):
+    return ttax.build_taxonomy_tables(ds.tax_parent, ds.tax_depth,
+                                      ds.ref_taxon)
+
+
+@pytest.mark.parametrize("fields", [{}, dict(
+    max_poly_cols=4, min_coverage=2, poly_min_minor_count=1,
+    poly_minor_frac_num=1, poly_minor_frac_den=20, dp_spawn_min_orphans=2)])
+def test_oracle_cluster_and_consensus(leaf_inputs, fields):
+    ds, tax, res, bins = leaf_inputs
+    jcfg = jconfig.PipelineConfig(**fields)
+    tcfg = tconfig.PipelineConfig(**fields)
+    ref_len = ds.ref_seqs.shape[1]
+    n_poly = 0
+    for leaf in np.unique(tax.ref_taxon).tolist():
+        mem = jobin.leaf_membership(bins, leaf, tax) & res.aligned
+        q, rc = res.query[mem], res.ref_col[mem]
+        counts = jocluster.bin_pileup(q, rc, ref_len)
+        _assert_same(counts, tocluster.bin_pileup(q, rc, ref_len), "pileup")
+        for cap in (True, False):
+            poly = jocluster.polymorphic_cols(counts, jcfg, cap=cap)
+            _assert_same(poly, tocluster.polymorphic_cols(counts, tcfg,
+                                                          cap=cap), "poly")
+        n_poly += poly.size
+        feat = jocluster.read_features(q, rc, poly)
+        _assert_same(feat, tocluster.read_features(q, rc, poly), "features")
+        can_seed = bins[mem] == leaf
+        for cs in (can_seed, None):
+            ref = jocluster.dp_means(feat, jcfg, cs)
+            got = tocluster.dp_means(feat, tcfg, cs)
+            _assert_same(ref[0], got[0], "assign")
+            _assert_same(ref[1], got[1], "centers")
+            assert ref[2] == got[2]
+        c_ref, s_ref = jocons.cluster_pileup(q, rc, ref_len)
+        c_got, s_got = tocons.cluster_pileup(q, rc, ref_len)
+        _assert_same(c_ref, c_got, "cluster_pileup counts")
+        _assert_same(s_ref, s_got, "cluster_pileup span")
+        for span in (s_ref, s_ref - 3 * (np.arange(ref_len) % 2)):
+            seq, off = jocons.call_consensus(c_ref, span)
+            seq2, off2 = tocons.call_consensus(c_ref, span)
+            _assert_same(seq, seq2, "call_consensus")
+            assert off == off2
+    if fields:      # thresholds low enough for 150 reads to vary
+        assert n_poly > 0

@@ -506,3 +506,166 @@ def test_mesh_stream_with_k4_matches_single_device(dev):
         assert torch.equal(one[k], flat)
     assert torch.equal(c1, torch.cat(cg, dim=1))
     assert torch.equal(s1, sg[0]) and torch.equal(r1, rg[0])
+
+
+# ---------------------------------------------------------------------------
+# round 0 on the card: pileup merge, clustering, consensus, the round itself.
+# These are plain PyTorch (no hand-written kernel); each is held against the
+# same function on CPU tensors, which the CPU tests hold against the JAX
+# package, bit for bit.
+# ---------------------------------------------------------------------------
+
+def _toy_tables():
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+
+    parent = np.array([0, 0, 0, 1, 1, 2, 3, 3], np.int32)
+    depth = np.array([0, 1, 1, 2, 2, 2, 3, 3], np.int32)
+    return build_taxonomy_tables(parent, depth,
+                                 np.array([4, 5, 6, 7], np.int32))
+
+
+def _both(dev, fn, *arrays, **kw):
+    """fn on CPU tensors and on the card's, outputs flattened to tuples."""
+    def flat(out):
+        return tuple(out) if isinstance(out, tuple) else (out,)
+
+    cpu = [torch.from_numpy(np.array(a)) for a in arrays]
+    return flat(fn(*cpu, **kw)), flat(fn(*[t.to(dev) for t in cpu], **kw))
+
+
+@pytest.mark.parametrize("share", [10, 3, 1, 0])
+def test_round_pileups_on_card(dev, share):
+    from rambl_tpu_torch.pipeline import pileup as tp
+
+    tax = _toy_tables()
+    rng = np.random.default_rng(30 + share)
+    B, Lr, ref_len = 2000, 32, 200
+    q = rng.integers(0, 5, (B, Lr)).astype(np.int8)
+    rc = np.sort(rng.integers(-1, ref_len, (B, Lr)), axis=1).astype(np.int16)
+    bins = rng.integers(-1, tax.n_nodes, B).astype(np.int32)
+    nodes = np.arange(tax.n_nodes, dtype=np.int32)
+    node2slot = np.full(tax.n_nodes, -1, np.int32)
+    node2slot[[1, 3, 4, 7]] = np.arange(4, dtype=np.int32)   # chains cut
+    cnt_c, cnt_g = _both(dev, tp.node_pileup, q, rc, bins, n_nodes=8,
+                         ref_len=ref_len)
+    _equal(cnt_g, cnt_c)
+    _equal(*_both(dev, lambda c, s, lv, a, d: tp.leaf_pileup(
+        c, s, lv, a, d, share), *[t.numpy() for t in cnt_c], nodes,
+        tax.anc_path, tax.depth)[::-1])
+    sl_c, sl_g = _both(dev, tp.node_slot_pileup, q, rc, bins, node2slot,
+                       n_slots=64, ref_len=ref_len)
+    _equal(sl_g, sl_c)
+    _equal(*_both(dev, lambda c, s, n2s, lv, a, d: tp.leaf_pileup_slots(
+        c, s, n2s, lv, a, d, share), *[t.numpy() for t in sl_c], node2slot,
+        nodes, tax.anc_path, tax.depth)[::-1])
+    lc = tp.leaf_pileup(*cnt_c, torch.from_numpy(nodes),
+                        torch.from_numpy(tax.anc_path),
+                        torch.from_numpy(tax.depth))[0]
+    _equal(*_both(dev, tp.polymorphic_mask, lc.numpy(), min_coverage=2,
+                  poly_min_minor_count=1, poly_minor_frac_num=1,
+                  poly_minor_frac_den=10, max_poly_cols=5)[::-1])
+
+
+@pytest.mark.parametrize("M", [4, 1024])
+def test_round_membership_and_features_on_card(dev, M):
+    from rambl_tpu_torch.pipeline import cluster as tc
+
+    tax = _toy_tables()
+    rng = np.random.default_rng(40 + M)
+    bins = rng.integers(-1, tax.n_nodes, 3000).astype(np.int32)
+    srt_c, srt_g = _both(dev, tc.bin_sort, bins, n_nodes=tax.n_nodes)
+    _equal(srt_g, srt_c)
+    nodes = np.arange(tax.n_nodes, dtype=np.int32)
+    for share in (10, 1, 0):
+        _equal(*_both(dev, lambda o, s, e, lv, a, d: tc.member_table_ranges(
+            o, s, e, lv, a, d, M, share), *[t.numpy() for t in srt_c],
+            nodes, tax.anc_path, tax.depth)[::-1])
+    NL, Mf, Lr, ref_len = 6, 64, 48, 300
+    qm = rng.integers(0, 6, (NL, Mf, Lr)).astype(np.int8)
+    rcm = np.sort(rng.integers(-1, ref_len, (NL, Mf, Lr)), axis=2)
+    rcm[:, ::3, 5] = rcm[:, ::3, 4]                      # column collisions
+    mv = rng.random((NL, Mf)) < 0.8
+    pc = rng.integers(0, ref_len + 9, (NL, 16)).astype(np.int32)
+    pv = rng.random((NL, 16)) < 0.8
+    _equal(*_both(dev, tc.leaf_features_dense, qm, rcm.astype(np.int32), mv,
+                  pc, pv, ref_len=ref_len)[::-1])
+
+
+def test_round_dp_means_on_card(dev):
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.pipeline import cluster as tc
+
+    rng = np.random.default_rng(50)
+    NL, M, P = 12, 256, 32
+    feat = np.full((NL, M, P), -1, np.int8)
+    for a in range(NL):
+        haps = rng.integers(0, 4, (1 + a % 4, P))
+        if a == 0:                                       # ties everywhere
+            haps = np.stack([np.zeros(P, int), np.ones(P, int)])
+        for m in range(M - 8):
+            lo = int(rng.integers(0, P - 4))
+            hi = int(rng.integers(lo + 4, P + 1))
+            row = haps[m % len(haps)].copy()
+            row[rng.random(P) < 0.02] = rng.integers(0, 4)
+            feat[a, m, lo:hi] = row[lo:hi]
+    can_seed = rng.random((NL, M)) < 0.7
+    can_seed[-1] = False
+    for fields in ({}, dict(max_clusters_per_bin=4, dp_spawn_min_orphans=2)):
+        cpu, gpu = _both(dev, tc.dp_means_leaves, feat, can_seed,
+                         cfg=PipelineConfig(**fields))
+        _equal(gpu, cpu)
+        assert int(cpu[2].max()) >= 2           # kact: leaves spawned
+
+
+def test_round_consensus_on_card(dev):
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.pipeline import consensus as tcons
+
+    cfg = PipelineConfig()
+    rng = np.random.default_rng(60)
+    NL, M, Lr, ref_len = 5, 200, 40, 256
+    q = rng.integers(0, 5, (NL, M, Lr)).astype(np.int8)
+    start = rng.integers(0, ref_len - Lr, (NL, M, 1))
+    rc = (start + np.arange(Lr)).astype(np.int32)
+    rc[rng.random(rc.shape) < 0.05] = -1
+    valid = rng.random((NL, M)) < 0.9
+    assign = rng.integers(0, 3, (NL, M)).astype(np.int32)
+    leaf_counts = rng.integers(0, 12, (NL, ref_len, 4)).astype(np.int32)
+    leaf_span = (leaf_counts.sum(-1) + 1).astype(np.int32)
+    pm = rng.random((NL, ref_len)) < 0.3
+    _equal(*_both(dev, tcons.cluster_consensus_leaves, q, rc, valid, assign,
+                  pm, leaf_counts, leaf_span, cfg=cfg)[::-1])
+    excl = leaf_counts.copy()
+    excl[:, ::5, 1] = excl[:, ::5, 0] // 3 + 4
+    _equal(*_both(dev, tcons.minor_haplotype_leaves, excl, leaf_counts,
+                  leaf_span, cfg=cfg)[::-1])
+
+
+@pytest.mark.parametrize("slot", [False, True], ids=["dense", "slot"])
+def test_assemble_round_on_card(dev, slot):
+    """Round 0 on the card == on CPU tensors == the port's NumPy oracle,
+    gene by gene, on the dataset of tests/test_assembly_parity.py."""
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.data.simulate import simulate_dataset
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.oracle.pipeline import assemble_round as oracle
+    from rambl_tpu_torch.ops import sw_cuda
+    from rambl_tpu_torch.pipeline.assemble import assemble_round
+
+    ds = simulate_dataset(n_species=3, refs_per_species=2, n_reads=400,
+                          seed=2, skewed_abundance=False)
+    tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
+    cfg = PipelineConfig(max_assembly_iters=2, batch_size=128,
+                         pileup_slot_nodes=1 if slot else 4096)
+    args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tax, cfg, 0)
+    before = sw_cuda.LAUNCHES["score"]
+    g_card, s_card = assemble_round(*args, device=dev)
+    assert sw_cuda.LAUNCHES["score"] > before
+
+    def key(genes):
+        return [(g.key(), g.n_reads, g.leaf, g.cluster, g.taxon, g.offset)
+                for g in genes]
+
+    g_cpu, s_cpu = assemble_round(*args, device="cpu")
+    assert key(g_card) == key(g_cpu) and s_card == s_cpu
+    assert key(g_card) == key(oracle(*args)[0]) and len(g_card) > 3
