@@ -2,8 +2,9 @@
 """Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU: the read
 stream, the K1 bench path (bench, S1 variant sweep, S2 prep ablation), the
 data-parallel read stream with a ring-sharded index on a mesh of four
-virtual ranks of the card (K4, the ring rotation), and round 0 of the
-assembly (reads -> genes).
+virtual ranks of the card (K4, the ring rotation), round 0 of the assembly
+and the whole assembly (reads -> final genes: refinement rounds, polish,
+checkpoint and resume, cohort phasing, the command line).
 
 Run from the repository root, with no arguments:
 
@@ -80,10 +81,30 @@ code is non-zero and no result line is printed:
    outputs, profiled (device busy share, five longest device operations)
    and its host syncs counted, equals its rerun on CPU tensors for at least
    16 leaves bit for bit (spawn and light leaves where present; the light
-   path also on 4 leaves directly).
+   path also on 4 leaves directly);
+13. assembly: `assemble` (round 0, the refinement rounds, polish) on
+   cuda:0; its NumPy-oracle references run in worker processes started
+   after phase 2, on half the host's cores. (a) The dataset of
+   tests/test_assembly_parity.py, dense and with pileup_slot_nodes=1:
+   n_rounds, converged, the pre-polish panel, polish's `changed` and the
+   genes equal the port's oracle `oracle.pipeline.assemble`. (b) Config 2
+   at full width (max_assembly_iters 5, polish on): rounds, genes,
+   full-length genes, wall and genes/hour; per round its `_StageClock`
+   stages, the col maps' build, K1 and K2 + K3 launches (> 0 in every
+   round, 0 in polish), peak device memory and what is allocated at its
+   start (which must not climb). (c) The same run killed after round 1
+   (a wrapped `assemble_round` raises) resumes from its checkpoint and
+   `.aux` sidecar to (b)'s genes bit for bit; a sidecar under another
+   config raises. (d) scripts/quality_bench.py's four scenarios: recovered
+   references (27 of 27 in all), each scenario's genes equal to the
+   oracle's. (e) A 2-sample cohort through `assemble_cohort` equals the
+   oracle's `assemble_cohort`; `python -m rambl_tpu_torch.cli simulate`
+   then `assemble` in a subprocess writes the FASTA the in-process genes
+   give.
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
-main path, error against the plain version, and the bound: the larger of the
+main path (for K1 and K2 + K3 the whole assembly of phase 13 (b)), error
+against the plain version, and the bound: the larger of the
 bytes over 3.35 TB/s and the integer operations over 132 SMs x 64 INT32
 lanes x the card's max SM clock) and the card's name and power limit from
 nvidia-smi; the last line is the result as JSON.
@@ -471,6 +492,391 @@ def phase_round(dev, ds, index, tables, col_maps, cfg, stream_out, card):
     return launches
 
 
+#: the small dataset of tests/test_assembly_parity.py and its config
+PARITY_DS = dict(n_species=3, refs_per_species=2, n_reads=400, seed=2,
+                 skewed_abundance=False)
+PARITY_CFG = dict(max_assembly_iters=2, batch_size=128)
+#: scripts/quality_bench.py's scenarios and config (its SCENARIOS, main)
+QUALITY = [
+    ("uniform-2strain", dict(n_species=5, refs_per_species=2, n_reads=1500,
+                             seed=1, skewed_abundance=False)),
+    ("skewed-2strain", dict(n_species=5, refs_per_species=2, n_reads=1500,
+                            seed=2, skewed_abundance=True)),
+    ("single-strain", dict(n_species=8, refs_per_species=1, n_reads=2000,
+                           seed=3, skewed_abundance=False)),
+    ("deep-uniform", dict(n_species=3, refs_per_species=1, n_reads=3000,
+                          seed=4, skewed_abundance=False)),
+]
+QUALITY_CFG = dict(max_assembly_iters=4, batch_size=512)
+QUALITY_BAR = 27           # the reference's record, SURVEY.md:523
+#: phase 13's cohort: 3 species x 2 strains, 2 samples of 2,000 reads
+COHORT_DS = dict(n_species=3, refs_per_species=2, n_samples=2,
+                 reads_per_sample=2000, seed=5)
+COHORT_CFG = dict(max_assembly_iters=2, batch_size=512, max_genes=32)
+#: phase 13's command-line run: `simulate` with these flags, then
+#: `assemble` with the default config
+CLI_SIM = ["--species", "3", "--strains", "2", "--reads", "2000",
+           "--seed", "11"]
+_POOL = None
+
+
+def oracle_job(job):
+    """One NumPy-oracle reference of phase 13 (a worker process's task):
+    (name, kind, dataset kwargs, config fields) -> (name, results, s)."""
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.data.simulate import simulate_cohort, simulate_dataset
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.oracle.cohort import assemble_cohort
+    from rambl_tpu_torch.oracle.pipeline import assemble
+
+    name, kind, kw, fields = job
+    t0 = time.perf_counter()
+    cfg = PipelineConfig(**fields)
+    if kind == "cohort":
+        co = simulate_cohort(**kw)
+        ds = co.ds
+        tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
+        out = assemble_cohort(co.samples, ds.ref_seqs, ds.ref_lens, tax, cfg)
+    else:
+        ds = simulate_dataset(**kw)
+        tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
+        out = [assemble(ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tax,
+                        cfg)]
+    return name, out, time.perf_counter() - t0
+
+
+def start_oracles():
+    """Start phase 13's NumPy-oracle references in worker processes now, so
+    that they run on half the host's cores while phases 3-12 use the card.
+    Returns ({name: AsyncResult}, the number of workers)."""
+    import multiprocessing
+    import os
+
+    global _POOL
+    jobs = [("parity", "assemble", PARITY_DS, PARITY_CFG),
+            ("cohort", "cohort", COHORT_DS, COHORT_CFG)]
+    jobs += [(name, "assemble", kw, QUALITY_CFG) for name, kw in QUALITY]
+    # half the host's cores: the phases before 13 keep the other half
+    n = max(1, min(len(jobs), (os.cpu_count() or 2) // 2))
+    # spawn, not fork: this process holds a CUDA context
+    _POOL = multiprocessing.get_context("spawn").Pool(n)
+    # longest first
+    order = sorted(jobs, key=lambda j: -j[2].get(
+        "n_reads", j[2].get("reads_per_sample", 0) * 2))
+    return {j[0]: _POOL.apply_async(oracle_job, (j,)) for j in order}, n
+
+
+def stop_oracles():
+    if _POOL is not None:
+        _POOL.terminate()
+        _POOL.join()
+
+
+def recovered(ds, genes, k=25):
+    """scripts/quality_bench.py's metric: references of >= 5x simulated
+    coverage with a gene at > 95% 25-mer containment -> (recovered,
+    detectable)."""
+    from rambl_tpu_torch.io.pack import decode_seq
+
+    def kmers(s):
+        return set(s[i: i + k] for i in range(len(s) - k + 1))
+
+    refk = [kmers(decode_seq(ds.ref_seqs[r, : ds.ref_lens[r]]))
+            for r in range(ds.n_refs)]
+    cov = np.bincount(ds.true_ref, minlength=ds.n_refs) * 100 / ds.ref_lens
+    best = {int(r): 0.0 for r in np.nonzero(cov >= 5)[0]}
+    for g in genes:
+        gk = kmers(decode_seq(g.seq))
+        r = max(range(ds.n_refs), key=lambda x: len(gk & refk[x]))
+        if r in best:
+            best[r] = max(best[r], len(gk & refk[r]) / max(len(gk), 1))
+    return sum(c > 0.95 for c in best.values()), len(best)
+
+
+def same_result(what, got, want, genes=True):
+    """The card's AssemblyResult equals the oracle's: n_rounds, converged,
+    the pre-polish panel, polish's `changed` and (genes) every final
+    gene's fields."""
+    if (got.n_rounds, got.converged) != (want.n_rounds, want.converged):
+        raise AssertionError(f"{what}: rounds {got.n_rounds} converged "
+                             f"{got.converged}, the oracle's "
+                             f"{want.n_rounds} {want.converged}")
+    if gene_fields(got.panel) != gene_fields(want.panel):
+        raise AssertionError(f"{what}: the pre-polish panel differs from "
+                             "the oracle's")
+    pol = [(s["round"], s.get("changed")) for s in got.round_stats[-1:]]
+    if pol != [(s["round"], s.get("changed"))
+               for s in want.round_stats[-1:]]:
+        raise AssertionError(f"{what}: polish {pol} differs from the "
+                             f"oracle's {want.round_stats[-1:]}")
+    if genes and gene_fields(got.genes) != gene_fields(want.genes):
+        raise AssertionError(f"{what}: final genes differ from the oracle's")
+
+
+def phase_assembly(dev, ds, tables, cfg, card, oracles):
+    """Phase 13: the whole assembly (`pipeline.assemble.assemble`) on the
+    card. (a) the parity dataset against the port's NumPy oracle, dense and
+    slot; (b) config 2 at full width, round by round; (c) a crash after
+    round 1 and its resume; (d) quality_bench's scenarios; (e) a cohort
+    and the command line. Returns the K1 and K2 + K3 launches of (b)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from rambl_tpu_torch import cli
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.data.simulate import simulate_cohort, simulate_dataset
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.io.fasta import read_fasta, write_fasta
+    from rambl_tpu_torch.io.loader import load_fastq_codes
+    from rambl_tpu_torch.io.pack import encode_batch
+    from rambl_tpu_torch.ops import sw_cuda
+    from rambl_tpu_torch.pipeline import assemble as tassemble
+    from rambl_tpu_torch.utils.checkpoint import (
+        load_aux_evidence,
+        load_checkpoint,
+    )
+
+    def oracle(name):
+        t0 = time.perf_counter()
+        _, out, s = oracles[name].get(timeout=900)
+        return out, s, time.perf_counter() - t0
+
+    # (a) the parity dataset, dense and slot, against the oracle
+    sm = simulate_dataset(**PARITY_DS)
+    sm_tax = build_taxonomy_tables(sm.tax_parent, sm.tax_depth, sm.ref_taxon)
+    sm_args = (sm.reads, sm.read_lens, sm.ref_seqs, sm.ref_lens, sm_tax)
+    (want,), want_s, waited = oracle("parity")
+    for mode, extra in (("dense", {}), ("slot", dict(pileup_slot_nodes=1))):
+        got = tassemble.assemble(*sm_args,
+                                 PipelineConfig(**PARITY_CFG, **extra),
+                                 device=dev)
+        same_result(f"parity ({mode})", got, want)
+    say(f"[13 assembly] (a) {sm.reads.shape[0]} reads: assemble on the card "
+        f"(dense and pileup_slot_nodes=1) equals the NumPy oracle: "
+        f"{want.n_rounds} rounds, converged {want.converged}, the "
+        f"{len(want.panel)}-gene pre-polish panel, polish changed "
+        f"{want.round_stats[-1]['changed']}, {len(want.genes)} genes "
+        f"(sequence, n_reads, leaf, cluster, taxon, offset) (oracle "
+        f"{want_s:.1f} s in a worker, waited {waited:.1f} s) [{card}]")
+
+    # (b) config 2 at full width, round by round
+    rounds, col_s = [], [0.0]
+    real_round, real_maps = tassemble.assemble_round, tassemble.build_col_maps
+
+    def timed_maps(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_maps(*a, **kw)
+        col_s[0] += time.perf_counter() - t0
+        return out
+
+    def recorded_round(*a, **kw):
+        torch.cuda.synchronize(dev)
+        before, maps0 = dict(sw_cuda.LAUNCHES), col_s[0]
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = real_round(*a, **kw)
+        torch.cuda.synchronize(dev)
+        rounds.append(dict(
+            wall=time.perf_counter() - t0, stats=out[1], start=start,
+            colmap=col_s[0] - maps0,
+            peak=torch.cuda.max_memory_allocated(dev),
+            launches={k: sw_cuda.LAUNCHES[k] - before[k] for k in before}))
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="rambl_smoke_")
+    args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tables)
+    os.environ["RAMBL_STAGE_TIMING"] = "1"
+    tassemble.assemble_round = recorded_round
+    tassemble.build_col_maps = timed_maps
+    try:
+        sw_cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = tassemble.assemble(*args, cfg,
+                                 checkpoint_path=os.path.join(tmp, "b.ckpt"),
+                                 device=dev)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        total = dict(sw_cuda.LAUNCHES)
+    finally:
+        del os.environ["RAMBL_STAGE_TIMING"]
+        tassemble.assemble_round = real_round
+        tassemble.build_col_maps = real_maps
+    after_rounds = {k: sum(r["launches"][k] for r in rounds) for k in total}
+    polish_launches = {k: total[k] - after_rounds[k] for k in total}
+    if len(rounds) != res.n_rounds:
+        raise AssertionError(f"{len(rounds)} rounds recorded, "
+                             f"{res.n_rounds} reported")
+    for i, r in enumerate(rounds):
+        if r["launches"]["score"] <= 0 or r["launches"]["align"] <= 0:
+            raise AssertionError(f"round {i} launched {r['launches']}: K1 "
+                                 "and K2+K3 must launch in every round")
+    if any(polish_launches.values()):
+        raise AssertionError(f"polish launched {polish_launches}: with the "
+                             "retained counts it must not re-stream round 0")
+    # nothing of a round stays allocated into the next (round 0's retained
+    # counts aside, which every later round carries alike)
+    starts = [r["start"] for r in rounds[1:]]
+    if starts and max(starts) > starts[0] + (1 << 20):
+        raise AssertionError(f"device memory at the start of each panel "
+                             f"round climbs: {starts}")
+    full = res.full_length(cfg)
+    pol = res.round_stats[-1]
+    genes_per_hour = len(full) / (e2e_s / 3600.0)
+    say(f"[13 assembly] (b) config 2 ({ds.reads.shape[0]} reads, "
+        f"max_assembly_iters {cfg.max_assembly_iters}, polish on): "
+        f"{res.n_rounds} rounds, converged {res.converged}; {len(res.genes)} "
+        f"genes, {len(full)} full-length (>= {cfg.full_len_min}); wall "
+        f"{e2e_s:.3f} s (host clock, index and col maps built inside) = "
+        f"{genes_per_hour:.0f} genes/hour [{card}]")
+    for i, r in enumerate(rounds):
+        st = r["stats"]
+        say(f"    round {i}: {st['genes']} genes, {st['n_leaves']} leaves, "
+            f"{st['aligned']} aligned; wall {r['wall']:.3f} s: "
+            + ", ".join(f"{k[2:]} {v:.2f} s" for k, v in st.items()
+                        if k.startswith("t_"))
+            + f" (align includes the col maps' build {r['colmap']:.2f} s); "
+            f"launches K1 {r['launches']['score']}, K2+K3 "
+            f"{r['launches']['align']}; peak device memory "
+            f"{r['peak'] / 1e9:.3f} GB (allocated at its start "
+            f"{r['start'] / 1e9:.3f} GB) [{card}]")
+    say(f"    polish: changed {pol['changed']}, t_polish {pol['t_polish']:.2f}"
+        f" s, nw_tier {pol['nw_tier']}, launches {polish_launches} [{card}]")
+
+    # (c) killed after round 1, resumed from its checkpoint and sidecar
+    ck = os.path.join(tmp, "c.ckpt")
+    calls = {"n": 0}
+
+    class Killed(RuntimeError):
+        pass
+
+    def dying_round(*a, **kw):
+        out = real_round(*a, **kw)
+        calls["n"] += 1
+        if calls["n"] == 2:          # round 0 + round 1 done -> crash
+            raise Killed()
+        return out
+
+    tassemble.assemble_round = dying_round
+    try:
+        tassemble.assemble(*args, cfg, checkpoint_path=ck, device=dev)
+        raise AssertionError("the run was not killed")
+    except Killed:
+        pass
+    finally:
+        tassemble.assemble_round = real_round
+    header, panel = load_checkpoint(ck)
+    aux = load_aux_evidence(ck + ".aux", cfg)
+    if header["round"] != 0 or not panel or list(aux) != ["node_counts"]:
+        raise AssertionError(f"checkpoint after the kill: {header}")
+    sw_cuda.reset_launches()
+    t0 = time.perf_counter()
+    resumed = tassemble.assemble(*args, cfg, initial_panel=panel,
+                                 initial_aux=aux, device=dev)
+    resume_s = time.perf_counter() - t0
+    if (gene_fields(resumed.genes) != gene_fields(res.genes)
+            or any(g.round_born != h.round_born
+                   for g, h in zip(resumed.genes, res.genes))
+            or (resumed.n_rounds, resumed.converged)
+            != (res.n_rounds, res.converged)):
+        raise AssertionError("the resumed run's genes differ from (b)'s")
+    try:
+        load_aux_evidence(ck + ".aux", dataclasses.replace(
+            cfg, min_score=cfg.min_score + 1))
+        raise AssertionError("a sidecar under another config was accepted")
+    except ValueError as e:
+        if "different config" not in str(e):
+            raise
+    say(f"[13 assembly] (c) killed after round 1 (checkpoint at round "
+        f"{header['round']}, {len(panel)} genes, sidecar {aux['node_counts'].shape}"
+        f"); resumed with the sidecar in {resume_s:.3f} s to (b)'s "
+        f"{len(res.genes)} final genes bit for bit (launches "
+        f"{dict(sw_cuda.LAUNCHES)}); a sidecar under another config raises "
+        f"[{card}]")
+
+    # (d) quality_bench's scenarios
+    qcfg = PipelineConfig(**QUALITY_CFG)
+    total_rec = total_det = 0
+    for name, kw in QUALITY:
+        q = simulate_dataset(**kw)
+        qtax = build_taxonomy_tables(q.tax_parent, q.tax_depth, q.ref_taxon)
+        t0 = time.perf_counter()
+        got = tassemble.assemble(q.reads, q.read_lens, q.ref_seqs, q.ref_lens,
+                                 qtax, qcfg, device=dev)
+        q_s = time.perf_counter() - t0
+        (want,), want_s, waited = oracle(name)
+        same_result(f"quality {name}", got, want)
+        rec, det = recovered(q, got.genes)
+        total_rec += rec
+        total_det += det
+        say(f"[13 assembly] (d) {name}: recovered {rec}/{det}, "
+            f"{len(got.genes)} genes, {got.n_rounds} rounds, converged "
+            f"{got.converged}; {q_s:.3f} s on the card; equal to the NumPy "
+            f"oracle ({want_s:.1f} s in a worker, waited {waited:.1f} s) "
+            f"[{card}]")
+    if total_rec != QUALITY_BAR or total_det != QUALITY_BAR:
+        raise AssertionError(f"quality bar: recovered {total_rec}/"
+                             f"{total_det}, the bar is {QUALITY_BAR}/"
+                             f"{QUALITY_BAR}")
+    say(f"    TOTAL recovered {total_rec}/{total_det}")
+
+    # (e) a 2-sample cohort against the oracle; the command line
+    co = simulate_cohort(**COHORT_DS)
+    co_tax = build_taxonomy_tables(co.ds.tax_parent, co.ds.tax_depth,
+                                   co.ds.ref_taxon)
+    t0 = time.perf_counter()
+    got = tassemble.assemble_cohort(co.samples, co.ds.ref_seqs,
+                                    co.ds.ref_lens, co_tax,
+                                    PipelineConfig(**COHORT_CFG), device=dev)
+    co_s = time.perf_counter() - t0
+    want, want_s, waited = oracle("cohort")
+    for j, (g, w) in enumerate(zip(got, want)):
+        same_result(f"cohort sample {j}", g, w)
+    phased = [sum(g.round_born == -1 for g in r.genes) for r in got]
+    if len(got) != 2 or not all(phased):
+        raise AssertionError(f"cohort: phased genes {phased}")
+    say(f"[13 assembly] (e) cohort of {len(got)} samples x "
+        f"{COHORT_DS['reads_per_sample']} reads: {[len(r.genes) for r in got]}"
+        f" genes ({phased} phased) in {co_s:.3f} s on the card, equal to the "
+        f"NumPy oracle's ({want_s:.1f} s in a worker, waited {waited:.1f} s) "
+        f"[{card}]")
+    d = os.path.join(tmp, "cli")
+    gene_fa = os.path.join(d, "genes.fasta")
+    files = [os.path.join(d, n) for n in ("reads.fastq", "refs.fasta",
+                                          "taxonomy.tsv")]
+    t0 = time.perf_counter()
+    for argv in (["simulate", "--out", d, *CLI_SIM],
+                 ["assemble", "--reads", files[0], "--reference", files[1],
+                  "--taxonomy", files[2], "--out", gene_fa, "--device",
+                  str(dev), "--metrics", os.path.join(d, "m.jsonl")]):
+        r = subprocess.run(
+            [sys.executable, "-m", "rambl_tpu_torch.cli", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            raise AssertionError(f"rambl_tpu_torch.cli {argv[0]} exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+    cli_s = time.perf_counter() - t0
+    ccfg = PipelineConfig()
+    refs = read_fasta(files[1])
+    r_seqs, r_lens = encode_batch([s for _, s in refs], ccfg.ref_len_max)
+    reads, lens = load_fastq_codes(files[0], ccfg.read_len_max)
+    ctax = cli._load_taxonomy(files[2], [n for n, _ in refs])
+    mine = tassemble.assemble(reads, lens, r_seqs, r_lens, ctax, ccfg,
+                              device=dev)
+    write_fasta(gene_fa + ".in_process", cli.gene_records(mine.genes))
+    with open(gene_fa) as a, open(gene_fa + ".in_process") as b:
+        if a.read() != b.read() or not mine.genes:
+            raise AssertionError("the CLI's FASTA differs from the "
+                                 "in-process genes'")
+    say(f"[13 assembly] (e) python -m rambl_tpu_torch.cli simulate && "
+        f"assemble (default config, on the card, in a subprocess, "
+        f"{cli_s:.1f} s together): its FASTA of {len(mine.genes)} genes "
+        f"equals the one written from the in-process genes [{card}]")
+    return {"score": total["score"], "align": total["align"]}
+
+
 def require_equal(what: str, got, ref) -> int:
     err = max_abs_err(got, ref)
     if err:
@@ -516,6 +922,9 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     say(f"[2 build] {lib_path} in {build_s:.2f} s "
         f"(nvcc {' '.join(sw_cuda.NVCC_FLAGS)})")
+    oracles, n_workers = start_oracles()
+    say(f"    phase 13's NumPy-oracle references started in {n_workers} "
+        f"worker processes ({len(oracles)} jobs)")
     kernel_regs = {}
     with open(sw_cuda.BUILD_LOG) as f:
         for name, regs, spill in ptxas_report(f):
@@ -936,6 +1345,8 @@ def main() -> None:
     say("[8 bench path] python -m rambl_tpu_torch.bench")
     bench_line, bench_n = counted(tbench.run)
     say("    " + json.dumps(bench_line))
+    if not (bench_line["e2e_wall_s"] > 0 and bench_line["genes_per_hour"] > 0):
+        raise AssertionError(f"bench's end-to-end assembly: {bench_line}")
     say("[8 bench path] python -m rambl_tpu_torch.scripts.bench_sw_variants")
     sweep, sweep_n = counted(bench_sw_variants.run)
     say("[8 bench path] python -m rambl_tpu_torch.scripts.ablate_prep")
@@ -1303,6 +1714,10 @@ def main() -> None:
     # ---- 12. round 0 of the assembly ---------------------------------------
     phase_round(dev, ds, index, tables, col_maps, cfg,
                 (merged, counts, span_diff, read_count), card)
+    del merged, counts, span_diff, read_count
+
+    # ---- 13. the whole assembly ---------------------------------------------
+    asm_launches = phase_assembly(dev, ds, tables, cfg, card, oracles)
 
     peak = int32_ops_per_s(dev)
     n_path = PAIRS
@@ -1362,12 +1777,13 @@ def main() -> None:
 
     kernels = [
         row("sw_score (K1)", src, "rambl_tpu/ops/sw_pallas.py:75",
-            launches["score"], err["score"], k1[ROWS][0], k1[ROWS][1], "K1"),
+            asm_launches["score"], err["score"], k1[ROWS][0], k1[ROWS][1],
+            "K1"),
         {**row("sw_align_traceback (K2+K3)", src,
                "rambl_tpu/ops/sw_pallas.py:150 and "
                "rambl_tpu/ops/sw_pallas.py:317",
-               launches["align"], err["align"], k23[n_tb][0], k23[n_tb][3],
-               "K2+K3"),
+               asm_launches["align"], err["align"], k23[n_tb][0],
+               k23[n_tb][3], "K2+K3"),
          "device_ms": k23[n_tb][1]},
         row(f"sw_strip_score (S1, {best_v})", src_v,
             "scripts/bench_sw_variants.py:48", sweep_n["variant"],
@@ -1393,5 +1809,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_oracles()
     sys.exit(0)

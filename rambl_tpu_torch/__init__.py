@@ -3,9 +3,10 @@
 The JAX package `rambl_tpu` stays the reference; this package reproduces its
 outputs bit for bit and imports nothing of it (nor jax). The host layers it
 needs are its own copies, under the reference's module names, held equal to
-the originals by tests/test_torch_host_layers.py: `config`, `utils.errors`,
-`io.pack`, `index.{builder,taxonomy,colmap}`, `data.simulate` and
-`oracle.{sw,seed,align,binning,cluster,consensus,pipeline}`.
+the originals by tests/test_torch_host_layers.py: `config`,
+`utils.{errors,checkpoint,metrics}`, `io.{pack,fasta,loader}`,
+`index.{builder,taxonomy,colmap,greengenes}`, `data.simulate` and
+`oracle.{sw,seed,align,binning,cluster,consensus,pipeline,polish,cohort}`.
 
 Layout mirrors `rambl_tpu`:
 
@@ -25,6 +26,9 @@ Layout mirrors `rambl_tpu`:
   on one device or data-parallel over a `parallel.mesh.DataMesh`;
 - `pipeline.assemble.assemble_round`: round 0 of the assembly on one
   device (stream, slot selection, clustering, consensus) -> genes;
+- `pipeline.assemble.assemble` / `polish` / `assemble_cohort`: the whole
+  assembly on one device (refinement rounds, polish, checkpoints and
+  resume, cohort phasing) -> final genes; `cli`: its command line;
 - `parallel.ring` / `ring_dma` / `steps`: the ring-sharded seed index, its
   rotation K4 (`csrc/ring.cu`) with the plain `copy_` version, and the mesh
   stream's steps;

@@ -1,6 +1,6 @@
 """Synthetic 16S mock-community generator: the port's copy of
 `simulate_dataset`, `toy_dataset` and `SimulatedDataset` from
-`rambl_tpu/data/simulate.py` (cohort mode waits for its slice).
+`rambl_tpu/data/simulate.py`, with the cohort generator `simulate_cohort`.
 
 A phylogeny of 16S-like genes with conserved/variable regions, a
 Greengenes-style 7-rank taxonomy, and shotgun reads with substitution/indel
@@ -267,3 +267,54 @@ def toy_dataset(seed: int = 0, n_reads: int = 10_000) -> SimulatedDataset:
     return simulate_dataset(
         n_species=20, refs_per_species=5, n_reads=n_reads, seed=seed
     )
+
+
+@dataclasses.dataclass
+class CohortDataset:
+    """Multi-sample cohort (BASELINE config 4): one shared reference
+    community, per-sample strain abundances, per-sample read sets."""
+    ds: SimulatedDataset                 # shared refs/taxonomy (its own reads
+                                         # are a vestigial 1-read set; ignore)
+    samples: List[Tuple[np.ndarray, np.ndarray]]   # (reads, read_lens) per sample
+    true_ref: List[np.ndarray]           # per-sample source ref of each read
+    abundance: np.ndarray                # (n_samples, n_refs) sampling weights
+
+
+def simulate_cohort(
+    n_species: int = 5,
+    refs_per_species: int = 3,
+    n_samples: int = 4,
+    reads_per_sample: int = 4000,
+    read_len: int = 100,
+    read_len_max: int = 128,
+    ref_len_max: int = 2048,
+    sub_error: float = 0.004,
+    indel_error: float = 0.0005,
+    seed: int = 0,
+    abundance_sigma: float = 1.0,
+) -> CohortDataset:
+    """Cohort mock community: the SAME strain panel sequenced in n_samples
+    metagenomes whose per-strain abundances vary lognormally per sample.
+
+    This is the shape where single-sample frequency phasing is provably blind
+    (strain allele frequencies overlap within any one sample) but cross-sample
+    abundance COVARIATION separates strains (oracle/cohort.py)."""
+    ds = simulate_dataset(
+        n_species=n_species, refs_per_species=refs_per_species, n_reads=1,
+        read_len=read_len, read_len_max=read_len_max, ref_len_max=ref_len_max,
+        sub_error=sub_error, indel_error=indel_error, seed=seed,
+        skewed_abundance=False,
+    )
+    rng = np.random.default_rng(seed + 1_000_003)
+    ab = rng.lognormal(0.0, abundance_sigma, size=(n_samples, ds.n_refs))
+    ab /= ab.sum(axis=1, keepdims=True)
+    samples, true_refs = [], []
+    for j in range(n_samples):
+        rj = np.random.default_rng(seed * 1009 + 31 * j + 7)
+        reads, lens, tr, _, _ = _gen_reads(
+            rj, ds.ref_seqs, ds.ref_lens, ab[j], reads_per_sample,
+            read_len, read_len_max, sub_error, indel_error)
+        samples.append((reads, lens))
+        true_refs.append(tr)
+    return CohortDataset(ds=ds, samples=samples, true_ref=true_refs,
+                         abundance=ab)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -37,6 +38,11 @@ def card_line(device) -> str:
          f"--id={device.index or 0}"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def to_host(x):
+    """A tensor on any device, or an array, as a host numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def resolve(device) -> torch.device:

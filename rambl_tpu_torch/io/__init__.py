@@ -1,2 +1,2 @@
-"""Host-side base codes (copy of the parts of rambl_tpu.io the port needs).
+"""Host-side sequence I/O (copies of the parts of rambl_tpu.io the port needs).
 """

@@ -1,5 +1,5 @@
 """Base codes on the host: the port's copy of the parts of `rambl_tpu/io/pack.py`
-that the simulator and the oracle use.
+that the simulator, the oracle and the file loaders use.
 
 Code space: A=0, C=1, G=2, T=3, N/pad=4. Code 4 never matches in alignment
 and is excluded from k-mer seeds and pileup counts.
@@ -19,6 +19,28 @@ CODE_TO_BASE = np.frombuffer(b"ACGTN", dtype=np.uint8)
 PAD = np.int8(4)
 
 _COMP = np.array([3, 2, 1, 0, 4], dtype=np.int8)  # A<->T, C<->G, N->N
+
+
+def encode_seq(seq: str) -> np.ndarray:
+    """ASCII string -> int8 codes (A0 C1 G2 T3, other->4)."""
+    raw = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
+    return BASE_TO_CODE[raw]
+
+
+def encode_batch(seqs, length: int) -> tuple[np.ndarray, np.ndarray]:
+    """Encode + pad a list of sequences to (n, length) int8 plus lengths (n,).
+
+    Sequences longer than `length` are truncated (callers choose `length` =
+    config.read_len_max / ref_len_max so this only clips pathological input).
+    """
+    n = len(seqs)
+    out = np.full((n, length), PAD, dtype=np.int8)
+    lens = np.zeros((n,), dtype=np.int32)
+    for i, s in enumerate(seqs):
+        c = encode_seq(s)[:length]
+        out[i, : len(c)] = c
+        lens[i] = len(c)
+    return out, lens
 
 
 def decode_seq(codes: np.ndarray) -> str:

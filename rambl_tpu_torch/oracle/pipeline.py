@@ -1,10 +1,14 @@
-"""One assembly round (oracle): the executable spec of
-`rambl_tpu_torch.pipeline.assemble.assemble_round`.
+"""End-to-end assembly pipeline (oracle): the executable spec of
+`rambl_tpu_torch.pipeline.assemble` (`assemble_round` and `assemble`).
 
-The port's copy of `Gene` and `assemble_round` from
-`rambl_tpu/oracle/pipeline.py`. Round 0 aligns reads against the reference
-panel, bins them via taxonomy LCA, clusters each leaf bin with DP-means and
-calls a consensus per cluster.
+The port's copy of `rambl_tpu/oracle/pipeline.py`. Iterative
+reconstruction loop:
+
+  round 0: align reads vs the reference index, bin via taxonomy LCA,
+           DP-means per leaf bin, consensus per cluster;
+  round t: realign all reads vs the current consensus panel (each gene a
+           reference of its provenance taxon), re-cluster, re-call consensus;
+  stop when the panel repeats or at max_assembly_iters; then polish.
 
 Cluster consensus uses variant-aware merging: at polymorphic columns the
 cluster's own reads vote; elsewhere the whole bin's reads vote (strains share
@@ -46,6 +50,35 @@ class Gene:
 
     def key(self) -> bytes:
         return self.seq.tobytes()
+
+
+@dataclasses.dataclass
+class AssemblyResult:
+    genes: List[Gene]        # final output (polished when cfg.polish)
+    n_rounds: int
+    converged: bool
+    round_stats: List[dict]
+    # the loop-state panel BEFORE the final polish pass: checkpoints must save
+    # this (resuming continues the loop, and the loop never sees polished
+    # genes), so resume stays a bitwise continuation
+    panel: List[Gene] = dataclasses.field(default_factory=list)
+
+    def full_length(self, cfg: PipelineConfig) -> List[Gene]:
+        return [g for g in self.genes if g.seq.shape[0] >= cfg.full_len_min]
+
+
+def pad_panel(genes: List[Gene], ref_len_max: int):
+    """Panel genes placed at their recorded anchor offsets (leading pad code
+    4 never matches, so alignment lands in the real sequence) - keeps all
+    panel coordinates mutually aligned across rounds."""
+    seqs = np.full((len(genes), ref_len_max), 4, dtype=np.int8)
+    lens = np.zeros((len(genes),), np.int32)
+    for i, g in enumerate(genes):
+        off = min(int(g.offset), ref_len_max - 1)
+        L = min(g.seq.shape[0], ref_len_max - off)
+        seqs[i, off : off + L] = g.seq[:L]
+        lens[i] = off + L
+    return seqs, lens
 
 
 def assemble_round(
@@ -213,3 +246,86 @@ def assemble_round(
     genes = genes[: cfg.max_genes]
     stats["genes"] = len(genes)
     return genes, stats
+
+
+def panel_tables(genes: List[Gene], tables: TaxonomyTables) -> TaxonomyTables:
+    """Taxonomy view for a consensus panel: the SAME tree, with each panel
+    gene mapped directly to its provenance taxon as a reference.
+
+    Later rounds are then full discovery rounds over the original bins:
+    clustering re-separates variants with the whole bin's coverage every
+    round. (The earlier per-gene-leaf + exclusive-read refinement could not
+    disentangle near-duplicate chimeric panel genes: each gene's exclusive
+    read set was thin and error-driven, and consensus degraded round over
+    round - see git history.)
+    """
+    return TaxonomyTables(
+        anc_path=tables.anc_path,
+        depth=tables.depth,
+        ref_taxon=np.array([g.taxon for g in genes], np.int32),
+        n_nodes=tables.n_nodes,
+    )
+
+
+def assemble(
+    reads: np.ndarray,
+    read_lens: np.ndarray,
+    ref_seqs: np.ndarray,
+    ref_lens: np.ndarray,
+    tables: TaxonomyTables,
+    cfg: PipelineConfig,
+    initial_panel: Optional[List[Gene]] = None,
+    col_maps: Optional[np.ndarray] = None,
+) -> AssemblyResult:
+    """initial_panel resumes from a checkpointed panel: the discovery round is
+    skipped and rounds continue deterministically on the given genes.
+    col_maps: optional MSA-derived anchor maps for rounds against the
+    ORIGINAL references (round 0 + polish); panel rounds keep NW maps."""
+    round_stats: List[dict] = []
+    if initial_panel is None:
+        genes, stats = assemble_round(
+            reads, read_lens, ref_seqs, ref_lens, tables, cfg, round_idx=0,
+            col_maps=col_maps,
+        )
+        round_stats.append(stats)
+    else:
+        genes = list(initial_panel)
+        round_stats.append(dict(round=0, resumed=True, genes=len(genes)))
+    seen = {tuple(sorted(g.key() for g in genes))}
+    converged = False
+    for it in range(1, cfg.max_assembly_iters):
+        if not genes:
+            break
+        pseqs, plens = pad_panel(genes, ref_seqs.shape[1])
+        ptab = panel_tables(genes, tables)
+        # same pinned hash geometry as the device panel rounds
+        panel_bits = max(
+            8, int(np.ceil(np.log2(2 * cfg.max_genes * cfg.ref_len_max + 1))))
+        genes, stats = assemble_round(
+            reads, read_lens, pseqs, plens, ptab, cfg, round_idx=it,
+            n_bits=panel_bits,
+        )
+        round_stats.append(stats)
+        new_key = tuple(sorted(g.key() for g in genes))
+        # fixpoint OR cycle: rounds are deterministic, so revisiting any
+        # previous panel means the loop will repeat forever - stop
+        if new_key in seen:
+            converged = True
+            break
+        seen.add(new_key)
+    n_rounds = len(round_stats)
+    panel = list(genes)
+    if cfg.polish and genes:
+        from rambl_tpu_torch.oracle.polish import polish_genes
+
+        genes, n_changed = polish_genes(
+            reads, read_lens, ref_seqs, ref_lens, genes, tables, cfg,
+            col_maps=col_maps)
+        round_stats.append(dict(round="polish", changed=n_changed))
+    return AssemblyResult(
+        genes=genes,
+        n_rounds=n_rounds,
+        converged=converged,
+        round_stats=round_stats,
+        panel=panel,
+    )

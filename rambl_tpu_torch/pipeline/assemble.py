@@ -12,7 +12,16 @@ accumulators are summed on the device. Round 0 then discovers variants per
 leaf bin (DP-means -> variant-aware consensus); panel management (gene
 lists, dedupe) is host logic on tiny data.
 
-The refinement rounds, polish and the round on a mesh are not ported yet.
+The whole assembly (`assemble_jax` as `assemble`): round 0, the refinement
+rounds (each a full discovery round against the last round's panel) until
+the panel repeats or `max_assembly_iters`, per-round checkpoints and
+resume, and the final polish (`polish_jax` as `polish`, its evidence from
+`leaf_counts_dict`); `assemble_cohort` runs one `assemble` per sample
+against a shared index, then cross-sample covariation phasing. The
+reference pads each panel to a 32-gene bucket only so that XLA reuses one
+compiled executable; pad references are all-N and inert, so the port
+leaves the padding out (tests/test_torch_assemble.py shows it neutral).
+The round on a mesh is not ported (`mesh=` raises; ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import numpy as np
 import torch
 
 from rambl_tpu_torch.config import PipelineConfig
-from rambl_tpu_torch.device import resolve
+from rambl_tpu_torch.device import resolve, to_host
 from rambl_tpu_torch.index.colmap import build_col_maps
 from rambl_tpu_torch.ops.seed import SeedTable
 from rambl_tpu_torch.pipeline.align import align_batch
@@ -60,6 +69,10 @@ from rambl_tpu_torch.utils.errors import UserError
 RETAINED = ("query", "ref_col", "bins", "score", "ref", "strand")
 
 
+def _stage_timing() -> bool:
+    return bool(int(os.environ.get("RAMBL_STAGE_TIMING", "0")))
+
+
 class _StageClock:
     """Accumulates wall time per named stage when the environment sets
     RAMBL_STAGE_TIMING=1 (read as the clock is made), else does nothing.
@@ -67,7 +80,7 @@ class _StageClock:
     serializes the dispatch pipeline, so leave it off for benchmarks."""
 
     def __init__(self):
-        self.on = bool(int(os.environ.get("RAMBL_STAGE_TIMING", "0")))
+        self.on = _stage_timing()
         self.t = {}
         self._last = time.time()
 
@@ -655,6 +668,13 @@ def cluster_stage(rec, counts, span_diff, read_count, leaves, tables,
     return cons, kact, n_mem, mh
 
 
+def _no_mesh(entry: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{entry}(mesh=...) is not ported yet: the round on a mesh "
+            "(make_slot_pileup_step, make_cluster_step) is ROADMAP item 15")
+
+
 def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
                    round_idx=0, orig_taxon_of_node=None, index=None,
                    n_bits=None, aux_out=None, mesh=None, col_maps=None, *,
@@ -669,10 +689,7 @@ def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
     slot accumulators and their host node2slot map ("slot_counts"), for the
     final polish pass. The round on a mesh is not ported (`mesh` raises).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "assemble_round(mesh=...) is not ported yet: the round on a mesh "
-            "(make_slot_pileup_step, make_cluster_step) is ROADMAP item 15")
+    _no_mesh("assemble_round", mesh)
     device = resolve(device)
     clock = _StageClock()
     if index is None:
@@ -723,3 +740,239 @@ def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
     clock.mark("genes_host")
     clock.into(stats)
     return genes, stats
+
+
+# --------------------------------------------------------------------------
+# the whole assembly: refinement rounds, polish, cohort
+# --------------------------------------------------------------------------
+
+def _panel_bits(cfg):
+    """The hash geometry of every panel round's index (the oracle pins the
+    same value)."""
+    return max(8, int(np.ceil(np.log2(2 * cfg.max_genes * cfg.ref_len_max + 1))))
+
+
+def leaf_counts_dict(reads, lens, ref_seqs, ref_lens, tables,
+                     cfg: PipelineConfig, taxa, node_counts=None,
+                     slot_counts=None, shared_index=None, mesh=None,
+                     col_maps=None, *, device=None):
+    """{taxon: (ref_len, 4) np.int32} leaf-EXCLUSIVE round-0 pileups for the
+    given taxa (oracle.polish.leaf_exclusive_counts semantics). The node-space
+    accumulator built during the discovery round IS the per-leaf exclusive
+    pileup (reads scatter at their exact bin node; ancestor chaining only
+    happens later), so when the caller retained it (dense `node_counts` or
+    slot-compacted `slot_counts`, tensors on any device or host arrays,
+    each fetched to the host once) no extra device work is needed;
+    otherwise one stream on `device` against the original index recomputes
+    it bit-identically (in slot mode with `node_slot_pileup` over the
+    requested taxa). Shared by the polish pass and cohort phasing."""
+    _no_mesh("leaf_counts_dict", mesh)
+    device = resolve(device)
+    ref_len = ref_seqs.shape[1]
+    taxa = np.unique(np.asarray(taxa)).astype(np.int64)
+    if node_counts is None and slot_counts is None:
+        index = shared_index if shared_index is not None else build_seed_index(
+            ref_seqs, ref_lens, k=cfg.k)
+        rec, counts, _, read_count = stream_align(
+            reads, lens, index, ref_seqs, ref_lens, tables, cfg,
+            col_maps=col_maps, device=device)
+        if counts is not None:
+            node_counts = counts
+        else:
+            # slot-mode recompute: only the requested taxa need counts
+            rc_host = read_count.cpu().numpy()
+            ids = taxa[rc_host[taxa] > 0].astype(np.int32)
+            node2slot = np.full(tables.n_nodes, -1, np.int32)
+            node2slot[ids] = np.arange(ids.size, dtype=np.int32)
+            n_slots = max(64, -(-max(ids.size, 1) // 64) * 64)
+            counts_s, _ = node_slot_pileup(
+                rec["query"], rec["ref_col"], rec["bins"],
+                torch.from_numpy(node2slot).to(device), n_slots, ref_len)
+            slot_counts = (counts_s, node2slot)
+        del rec
+    if node_counts is not None:
+        node_counts = to_host(node_counts)
+        if node_counts.ndim == 2:    # flat node_pileup rows -> host 3D view
+            node_counts = node_counts.reshape(-1, ref_len, 4)
+        return {int(l): node_counts[int(l)] for l in taxa}
+    counts_s, node2slot = slot_counts
+    counts_s = to_host(counts_s)
+    node2slot = to_host(node2slot)
+    if counts_s.ndim == 2:           # flat node_pileup rows -> host 3D view
+        counts_s = counts_s.reshape(-1, ref_len, 4)
+    zeros = np.zeros((ref_len, 4), np.int32)
+    return {
+        int(l): (counts_s[node2slot[int(l)]]
+                 if node2slot[int(l)] >= 0 else zeros)
+        for l in taxa
+    }
+
+
+def polish(reads, lens, genes, ref_seqs, ref_lens, tables,
+           cfg: PipelineConfig, node_counts=None, slot_counts=None,
+           shared_index=None, mesh=None, col_maps=None, *, device=None):
+    """Polish pass (see oracle.polish): leaf-exclusive re-vote of the final
+    panel from round-0 node pileups (evidence via leaf_counts_dict, which
+    re-streams round 0 on `device` only when none was retained). Returns
+    (genes, n_changed)."""
+    from rambl_tpu_torch.oracle.polish import anchor_seqs_of, apply_polish
+
+    _no_mesh("polish", mesh)
+    device = resolve(device)
+    if not genes:
+        return genes, 0
+    # retained dense accumulators cover every leaf; slot/recompute paths only
+    # need the gene taxa (apply_polish looks up nothing else)
+    taxa = (np.unique(tables.ref_taxon) if node_counts is not None
+            else np.unique([g.taxon for g in genes]))
+    counts_dict = leaf_counts_dict(
+        reads, lens, ref_seqs, ref_lens, tables, cfg, taxa=taxa,
+        node_counts=node_counts, slot_counts=slot_counts,
+        shared_index=shared_index, col_maps=col_maps, device=device)
+    anchor = anchor_seqs_of(ref_seqs, ref_lens, tables.ref_taxon)
+    return apply_polish(genes, counts_dict, anchor, cfg)
+
+
+def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
+             shared_index=None, initial_panel=None, mesh=None,
+             checkpoint_path=None, aux_out=None, col_maps=None,
+             initial_aux=None, *, device=None):
+    """The whole assembly on `device` (the first CUDA card when None; "cpu"
+    for the plain PyTorch path): the device version of
+    oracle.pipeline.assemble, with its convergence loop (every round is a
+    full discovery round; the panel maps genes back to their provenance
+    taxa - oracle.pipeline.panel_tables). Returns an AssemblyResult.
+
+    initial_panel resumes from a checkpointed panel (discovery skipped).
+    checkpoint_path, if given, atomically saves the loop panel after EVERY
+    round, and the round-0 evidence once to checkpoint_path + ".aux"; the
+    rounds are deterministic, so a resumed continuation is bitwise.
+    aux_out, if a dict, receives the retained round-0 pileup accumulators
+    ("node_counts" dense or "slot_counts", tensors on `device`); empty on
+    resumed runs unless initial_aux (utils.checkpoint.load_aux_evidence)
+    restores them, which also spares polish the round-0 re-stream.
+    The round on a mesh is not ported (`mesh` raises)."""
+    from rambl_tpu_torch.index.colmap import nw_tier
+    from rambl_tpu_torch.oracle.pipeline import (
+        AssemblyResult,
+        pad_panel,
+        panel_tables,
+    )
+    from rambl_tpu_torch.utils.checkpoint import (
+        save_aux_evidence,
+        save_checkpoint,
+    )
+
+    _no_mesh("assemble", mesh)
+    device = resolve(device)
+
+    def _ckpt(genes, round_idx, stats):
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, cfg, genes, round_idx, stats)
+
+    round_stats = []
+    aux = {} if (cfg.polish or aux_out is not None) else None
+    if initial_panel is None:
+        genes, stats = assemble_round(
+            reads, lens, ref_seqs, ref_lens, tables, cfg, round_idx=0,
+            index=shared_index, aux_out=aux, col_maps=col_maps, device=device)
+        round_stats.append(stats)
+        _ckpt(genes, 0, round_stats)
+        if checkpoint_path and aux:
+            save_aux_evidence(checkpoint_path + ".aux", cfg, aux)
+    else:
+        genes = list(initial_panel)
+        # resumed: reuse checkpointed round-0 evidence when provided, else
+        # polish re-streams round 0 bit-identically
+        aux = dict(initial_aux) if initial_aux else None
+        round_stats.append(dict(round=0, resumed=True, genes=len(genes),
+                                aux_restored=bool(initial_aux)))
+    seen = {tuple(sorted(g.key() for g in genes))}
+    converged = False
+    for it in range(1, cfg.max_assembly_iters):
+        if not genes:
+            break
+        # a fresh index of the panel (fixed hash geometry) and, with
+        # col_maps=None, the panel's own NW anchor maps
+        pseqs, plens = pad_panel(genes, ref_seqs.shape[1])
+        genes, stats = assemble_round(
+            reads, lens, pseqs, plens, panel_tables(genes, tables), cfg,
+            round_idx=it, n_bits=_panel_bits(cfg), device=device)
+        round_stats.append(stats)
+        _ckpt(genes, it, round_stats)
+        new_key = tuple(sorted(g.key() for g in genes))
+        # fixpoint OR cycle (deterministic rounds): stop on any repeat
+        if new_key in seen:
+            converged = True
+            break
+        seen.add(new_key)
+    n_rounds = len(round_stats)
+    panel = list(genes)
+    if aux_out is not None and aux:
+        aux_out.update(aux)
+    if cfg.polish and genes:
+        t_pol = time.time()
+        genes, n_changed = polish(
+            reads, lens, genes, ref_seqs, ref_lens, tables, cfg,
+            node_counts=(aux or {}).get("node_counts"),
+            slot_counts=(aux or {}).get("slot_counts"),
+            shared_index=shared_index, col_maps=col_maps, device=device)
+        pstats = dict(round="polish", changed=n_changed, nw_tier=nw_tier())
+        if _stage_timing():
+            pstats["t_polish"] = round(time.time() - t_pol, 2)
+        round_stats.append(pstats)
+    return AssemblyResult(genes=genes, n_rounds=n_rounds,
+                          converged=converged, round_stats=round_stats,
+                          panel=panel)
+
+
+def assemble_cohort(samples, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
+                    mesh=None, col_maps=None, *, device=None):
+    """Multi-sample cohort assembly with a SHARED reference index (BASELINE
+    config 4) on `device`.
+
+    samples: list of (reads, lens). The round-0 index is built once and
+    reused; each sample runs its own refinement loop (panel indexes are
+    per-sample), and its retained round-0 evidence is fetched to the host
+    before the next sample runs, so device buffers do not pile up; finally
+    cross-sample abundance-covariation phasing (oracle/cohort.py) over the
+    per-sample leaf-exclusive pileups. Returns one AssemblyResult per
+    sample. The round on a mesh is not ported (`mesh` raises)."""
+    from rambl_tpu_torch.oracle.cohort import cohort_phase
+    from rambl_tpu_torch.oracle.polish import anchor_seqs_of
+
+    _no_mesh("assemble_cohort", mesh)
+    device = resolve(device)
+    shared_index = build_seed_index(ref_seqs, ref_lens, k=cfg.k)
+    do_phase = cfg.cohort_phase and len(samples) >= 2
+    results, retained = [], []
+    for reads, lens in samples:
+        aux = {} if do_phase else None
+        results.append(assemble(
+            reads, lens, ref_seqs, ref_lens, tables, cfg,
+            shared_index=shared_index, aux_out=aux, col_maps=col_maps,
+            device=device))
+        if do_phase:
+            slot = aux.get("slot_counts")
+            retained.append(dict(
+                node_counts=(None if aux.get("node_counts") is None
+                             else to_host(aux["node_counts"])),
+                slot_counts=(None if slot is None
+                             else (to_host(slot[0]), slot[1])),
+            ))
+    if not do_phase:
+        return results
+    taxa = np.unique(np.asarray(
+        [g.taxon for r in results for g in r.genes], dtype=np.int64))
+    if taxa.size == 0:
+        return results
+    counts_list = [
+        leaf_counts_dict(reads, lens, ref_seqs, ref_lens, tables, cfg,
+                         taxa=taxa, shared_index=shared_index,
+                         col_maps=col_maps, device=device, **retained[j])
+        for j, (reads, lens) in enumerate(samples)
+    ]
+    anchor = anchor_seqs_of(ref_seqs, ref_lens, tables.ref_taxon)
+    geneses = cohort_phase([r.genes for r in results], counts_list, anchor, cfg)
+    return [dataclasses.replace(r, genes=g)
+            for r, g in zip(results, geneses)]

@@ -1,9 +1,9 @@
 """Guards around the port: it stands alone, and never falls back quietly.
 
-(a) `rambl_tpu_torch` streams reads, runs round 0 of the assembly and runs
-    its bench with both jax and the JAX package `rambl_tpu` made
-    unimportable, using only its own copies of the host layers; no file of the port and no line of `chip_smoke.py`
-    imports `rambl_tpu`;
+(a) `rambl_tpu_torch` streams reads, runs round 0 and the whole assembly
+    and runs its bench with both jax and the JAX package `rambl_tpu` made
+    unimportable, using only its own copies of the host layers; no file of
+    the port and no line of `chip_smoke.py` imports `rambl_tpu`;
 (b) `chip_smoke.py` fails in its first phase where there is no CUDA device,
     and also when it stands alone without the repository; the port's entry
     points raise where there is no card unless the caller asks for the CPU;
@@ -81,6 +81,43 @@ print("OK", int((merged["ref"] >= 0).sum()), len(genes))
     assert r.stdout.startswith("OK")
 
 
+def test_port_assembles_without_jax():
+    """The whole assembly (rounds, polish, a checkpoint) with jax and
+    rambl_tpu unimportable, held to the port's NumPy oracle."""
+    code = BLOCK_BOTH + """
+import os, tempfile
+from rambl_tpu_torch import cli
+from rambl_tpu_torch.config import PipelineConfig
+from rambl_tpu_torch.data.simulate import simulate_dataset
+from rambl_tpu_torch.index import greengenes
+from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+from rambl_tpu_torch.io import loader
+from rambl_tpu_torch.oracle import cohort
+from rambl_tpu_torch.oracle.pipeline import assemble as oracle_assemble
+from rambl_tpu_torch.pipeline.assemble import assemble
+from rambl_tpu_torch.utils.checkpoint import load_checkpoint
+ds = simulate_dataset(n_species=2, refs_per_species=2, n_reads=120, seed=3)
+tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
+cfg = PipelineConfig(batch_size=64, max_assembly_iters=2)
+args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tax, cfg)
+ck = os.path.join(tempfile.mkdtemp(), "panel.ckpt")
+got = assemble(*args, checkpoint_path=ck, device="cpu")
+want = oracle_assemble(*args)
+fields = lambda gs: [(g.key(), g.n_reads, g.leaf, g.cluster, g.taxon,
+                      g.offset) for g in gs]
+assert got.genes and fields(got.genes) == fields(want.genes)
+assert (got.n_rounds, got.converged) == (want.n_rounds, want.converged)
+assert fields(load_checkpoint(ck)[1]) == fields(got.panel)
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "rambl_tpu")
+            and sys.modules[m] is not None]
+print("OK", len(got.genes), got.n_rounds)
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("OK")
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: chip_smoke.py would run")
@@ -106,7 +143,7 @@ def test_card_tests_skip_here_with_reason():
               "no:cacheprovider", "tests/test_torch_kernels_cuda.py"],
              env_extra={"PYTHONPATH": REPO})
     assert r.returncode == 0, r.stdout[-3000:]
-    assert "158 skipped" in r.stdout and "passed" not in r.stdout
+    assert "162 skipped" in r.stdout and "passed" not in r.stdout
     assert "needs an NVIDIA GPU with CUDA" in r.stdout
 
 
@@ -115,7 +152,8 @@ def test_port_bench_runs_without_jax_or_rambl_tpu():
 import json
 from rambl_tpu_torch import bench
 line = bench.run(device="cpu", n_reads=256, batch=128, pairs=128, trials=1,
-                 batches=2, out=lambda *a: print(*a, file=sys.stderr))
+                 batches=2, e2e_reads=120, e2e_batch=64,
+                 out=lambda *a: print(*a, file=sys.stderr))
 print(json.dumps(line))
 """
     r = _run(["-c", code])
@@ -123,8 +161,8 @@ print(json.dumps(line))
     line = json.loads(r.stdout.strip().splitlines()[-1])
     assert line["metric"] == "reads_aligned_per_s_per_chip"
     assert line["device"]["platform"] == "cpu" and line["value"] > 0
-    assert "genes_per_hour" not in line
-    assert "parity: OK" in r.stderr
+    assert line["e2e_wall_s"] > 0 and line["genes_per_hour"] >= 0
+    assert "parity: OK" in r.stderr and "e2e assembly:" in r.stderr
 
 
 def _imported_modules(path):
@@ -150,25 +188,43 @@ def test_port_imports_no_rambl_tpu():
 
 @pytest.mark.parametrize("entry", ["bench", "bench_sw_variants",
                                    "ablate_prep", "stream_align", "data_mesh",
-                                   "assemble_round"])
-def test_entry_points_need_the_card_by_default(entry):
+                                   "assemble_round", "assemble", "polish",
+                                   "assemble_cohort", "cli_assemble"])
+def test_entry_points_need_the_card_by_default(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points would run")
-    from rambl_tpu_torch import bench
-    from rambl_tpu_torch.parallel.mesh import data_mesh
-    from rambl_tpu_torch.pipeline.assemble import assemble_round, stream_align
-    from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
+    from rambl_tpu_torch import bench, cli
     from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.oracle.pipeline import Gene
+    from rambl_tpu_torch.parallel.mesh import data_mesh
+    from rambl_tpu_torch.pipeline import assemble as asm
+    from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
 
-    run = {"bench": bench.run, "bench_sw_variants": bench_sw_variants.run,
-           "ablate_prep": ablate_prep.run, "data_mesh": data_mesh}.get(entry)
-    args = (np.zeros((0, 128), np.int8), np.zeros(0, np.int32), None,
-            np.zeros((1, 8), np.int8), np.ones(1, np.int32), None,
-            PipelineConfig())
+    reads, lens = np.zeros((0, 128), np.int8), np.zeros(0, np.int32)
+    refs, ref_lens = np.zeros((1, 8), np.int8), np.ones(1, np.int32)
+    cfg = PipelineConfig()
+    gene = Gene(seq=np.zeros(8, np.int8), n_reads=3, leaf=1, cluster=0,
+                round_born=0, taxon=1)
+    if entry == "cli_assemble":
+        assert cli.main(["simulate", "--out", str(tmp_path), "--species",
+                         "1", "--strains", "1", "--reads", "5"]) == 0
+    run = {
+        "bench": bench.run, "bench_sw_variants": bench_sw_variants.run,
+        "ablate_prep": ablate_prep.run, "data_mesh": data_mesh,
+        "stream_align": lambda: asm.stream_align(reads, lens, None, refs,
+                                                 ref_lens, None, cfg),
+        "assemble_round": lambda: asm.assemble_round(reads, lens, refs,
+                                                     ref_lens, None, cfg),
+        "assemble": lambda: asm.assemble(reads, lens, refs, ref_lens, None,
+                                         cfg),
+        "polish": lambda: asm.polish(reads, lens, [gene], refs, ref_lens,
+                                     None, cfg),
+        "assemble_cohort": lambda: asm.assemble_cohort(
+            [(reads, lens)] * 2, refs, ref_lens, None, cfg),
+        "cli_assemble": lambda: cli.main([
+            "assemble", "--reads", str(tmp_path / "reads.fastq"),
+            "--reference", str(tmp_path / "refs.fasta"),
+            "--out", str(tmp_path / "genes.fasta")]),
+    }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        if run is not None:
-            run()
-        elif entry == "stream_align":
-            stream_align(*args)
-        else:
-            assemble_round(args[0], args[1], *args[3:5], None, args[6])
+        run()

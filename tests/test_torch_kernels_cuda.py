@@ -669,3 +669,89 @@ def test_assemble_round_on_card(dev, slot):
     g_cpu, s_cpu = assemble_round(*args, device="cpu")
     assert key(g_card) == key(g_cpu) and s_card == s_cpu
     assert key(g_card) == key(oracle(*args)[0]) and len(g_card) > 3
+
+
+def _parity_inputs(slot=False, **fields):
+    """The dataset of tests/test_assembly_parity.py and its config."""
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.data.simulate import simulate_dataset
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+
+    ds = simulate_dataset(n_species=3, refs_per_species=2, n_reads=400,
+                          seed=2, skewed_abundance=False)
+    tax = build_taxonomy_tables(ds.tax_parent, ds.tax_depth, ds.ref_taxon)
+    cfg = PipelineConfig(**{**dict(max_assembly_iters=2, batch_size=128,
+                                   pileup_slot_nodes=1 if slot else 4096),
+                            **fields})
+    return (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tax), cfg
+
+
+def _fields(genes, born=True):
+    return [(g.key(), g.n_reads, g.leaf, g.cluster, g.taxon, g.offset)
+            + ((g.round_born,) if born else ()) for g in genes]
+
+
+@pytest.mark.parametrize("slot", [False, True], ids=["dense", "slot"])
+def test_assemble_on_card(dev, slot):
+    """The whole assembly on the card == on CPU tensors == the port's NumPy
+    oracle: rounds, pre-polish panel and polished genes."""
+    from rambl_tpu_torch.oracle.pipeline import assemble as oracle
+    from rambl_tpu_torch.pipeline.assemble import assemble
+
+    args, cfg = _parity_inputs(slot)
+    sw_cuda.reset_launches()
+    card = assemble(*args, cfg, device=dev)
+    assert sw_cuda.LAUNCHES["score"] >= card.n_rounds
+    cpu = assemble(*args, cfg, device="cpu")
+    want = oracle(*args, cfg)
+    for other in (cpu, want):
+        assert (card.n_rounds, card.converged) == (other.n_rounds,
+                                                   other.converged)
+        assert _fields(card.panel) == _fields(other.panel)
+        assert _fields(card.genes) == _fields(other.genes)
+    assert card.round_stats == cpu.round_stats and len(card.genes) > 3
+
+
+def test_polish_from_retained_counts_on_card(dev):
+    """Polish from round 0's retained counts (a CUDA tensor) == polish that
+    re-streams round 0 on the card; only the re-stream launches K1."""
+    from rambl_tpu_torch.pipeline.assemble import assemble, polish
+
+    args, cfg = _parity_inputs()
+    aux = {}
+    res = assemble(*args, cfg, aux_out=aux, device=dev)
+    assert aux["node_counts"].is_cuda
+    reads, lens, ref_seqs, ref_lens, tax = args
+    sw_cuda.reset_launches()
+    kept = polish(reads, lens, res.panel, ref_seqs, ref_lens, tax, cfg,
+                  node_counts=aux["node_counts"], device=dev)
+    assert sw_cuda.LAUNCHES["score"] == 0
+    again = polish(reads, lens, res.panel, ref_seqs, ref_lens, tax, cfg,
+                   device=dev)
+    assert sw_cuda.LAUNCHES["score"] > 0
+    assert kept[1] == again[1] == res.round_stats[-1]["changed"] > 0
+    assert _fields(kept[0]) == _fields(again[0]) == _fields(res.genes)
+
+
+def test_resume_from_checkpoint_on_card(dev, tmp_path):
+    """A run checkpointed on the card resumes on the card, from its final
+    panel and `.aux` sidecar, to the same final genes."""
+    from rambl_tpu_torch.pipeline.assemble import assemble
+    from rambl_tpu_torch.utils.checkpoint import (
+        load_aux_evidence,
+        load_checkpoint,
+    )
+
+    args, cfg = _parity_inputs(max_assembly_iters=3)
+    ck = str(tmp_path / "panel.ckpt")
+    full = assemble(*args, cfg, checkpoint_path=ck, device=dev)
+    _, panel = load_checkpoint(ck)
+    aux = load_aux_evidence(ck + ".aux", cfg)
+    sw_cuda.reset_launches()
+    resumed = assemble(*args, cfg, initial_panel=panel, initial_aux=aux,
+                       device=dev)
+    assert sw_cuda.LAUNCHES["score"] > 0
+    assert resumed.round_stats[0]["aux_restored"] is True
+    assert _fields(panel) == _fields(full.panel)
+    assert _fields(resumed.genes, born=False) == _fields(full.genes,
+                                                         born=False)
