@@ -100,7 +100,25 @@ code is non-zero and no result line is printed:
    oracle's. (e) A 2-sample cohort through `assemble_cohort` equals the
    oracle's `assemble_cohort`; `python -m rambl_tpu_torch.cli simulate`
    then `assemble` in a subprocess writes the FASTA the in-process genes
-   give.
+   give;
+14. mesh assembly: the same entry points with `mesh=` on 4 virtual ranks
+   of cuda:0 (`data_mesh(devices=[dev] * 4)`: the stream, the slot pileup
+   and the leaf-sharded cluster step on the ranks), each held to phase
+   13's one-card result. (a) The parity dataset, dense and slot, also
+   equal to the oracle; a run killed after round 1 on the mesh resumes on
+   one card to the same genes, and the reverse. (b) Config 2 at full width
+   (max_assembly_iters 5, polish on) with a replicated index, with
+   shard_index and ring_impl="dma" (the cohort preset's mode), and with
+   shard_positions added (the deep preset's mode, its rotation K4 too):
+   rounds, their stats (timings aside), panel and genes equal 13 (b)'s; K1,
+   K2 + K3 and, in the ring modes, K4 launch in every round, none in
+   polish; wall, genes/hour, each round's stages, launches and
+   peak memory; the cluster stage on round 0's mesh stream, alone, with
+   its member gathers timed apart, and on one card, outputs equal. (c) 13 (e)'s cohort, its shared index sharded once.
+   (d) `make_align_pileup_step` on config 2's first four batches equals the
+   one-card batch and its pileup; K4 timed on config 2's index shards. (e) `cli assemble --mesh 1` in a
+   subprocess writes 13 (e)'s FASTA. The ranks share one card's SMs and
+   memory: these are not multi-card times.
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
 main path (for K1 and K2 + K3 the whole assembly of phase 13 (b)), error
@@ -496,6 +514,7 @@ def phase_round(dev, ds, index, tables, col_maps, cfg, stream_out, card):
 PARITY_DS = dict(n_species=3, refs_per_species=2, n_reads=400, seed=2,
                  skewed_abundance=False)
 PARITY_CFG = dict(max_assembly_iters=2, batch_size=128)
+PARITY_MODES = {"dense": {}, "slot": dict(pileup_slot_nodes=1)}
 #: scripts/quality_bench.py's scenarios and config (its SCENARIOS, main)
 QUALITY = [
     ("uniform-2strain", dict(n_species=5, refs_per_species=2, n_reads=1500,
@@ -618,7 +637,10 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     card. (a) the parity dataset against the port's NumPy oracle, dense and
     slot; (b) config 2 at full width, round by round; (c) a crash after
     round 1 and its resume; (d) quality_bench's scenarios; (e) a cohort
-    and the command line. Returns the K1 and K2 + K3 launches of (b)."""
+    and the command line. Returns what phase 14 holds the mesh to: the K1
+    and K2 + K3 launches of (b) ("launches"), the results of (a) and the
+    oracle's, (b)'s result and rounds, (e)'s cohort and its inputs, and
+    (e)'s command line with the FASTA it wrote."""
     import dataclasses
     import os
     import tempfile
@@ -647,11 +669,14 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     sm_tax = build_taxonomy_tables(sm.tax_parent, sm.tax_depth, sm.ref_taxon)
     sm_args = (sm.reads, sm.read_lens, sm.ref_seqs, sm.ref_lens, sm_tax)
     (want,), want_s, waited = oracle("parity")
-    for mode, extra in (("dense", {}), ("slot", dict(pileup_slot_nodes=1))):
+    parity = {}
+    for mode, extra in PARITY_MODES.items():
         got = tassemble.assemble(*sm_args,
                                  PipelineConfig(**PARITY_CFG, **extra),
                                  device=dev)
         same_result(f"parity ({mode})", got, want)
+        parity[mode] = got
+    parity_oracle = want
     say(f"[13 assembly] (a) {sm.reads.shape[0]} reads: assemble on the card "
         f"(dense and pileup_slot_nodes=1) equals the NumPy oracle: "
         f"{want.n_rounds} rounds, converged {want.converged}, the "
@@ -846,17 +871,12 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     files = [os.path.join(d, n) for n in ("reads.fastq", "refs.fasta",
                                           "taxonomy.tsv")]
     t0 = time.perf_counter()
+    cli_argv = ["assemble", "--reads", files[0], "--reference", files[1],
+                "--taxonomy", files[2], "--device", str(dev)]
     for argv in (["simulate", "--out", d, *CLI_SIM],
-                 ["assemble", "--reads", files[0], "--reference", files[1],
-                  "--taxonomy", files[2], "--out", gene_fa, "--device",
-                  str(dev), "--metrics", os.path.join(d, "m.jsonl")]):
-        r = subprocess.run(
-            [sys.executable, "-m", "rambl_tpu_torch.cli", *argv],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600)
-        if r.returncode:
-            raise AssertionError(f"rambl_tpu_torch.cli {argv[0]} exited "
-                                 f"{r.returncode}: {r.stderr[-2000:]}")
+                 [*cli_argv, "--out", gene_fa, "--metrics",
+                  os.path.join(d, "m.jsonl")]):
+        run_cli(argv)
     cli_s = time.perf_counter() - t0
     ccfg = PipelineConfig()
     refs = read_fasta(files[1])
@@ -874,7 +894,340 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
         f"assemble (default config, on the card, in a subprocess, "
         f"{cli_s:.1f} s together): its FASTA of {len(mine.genes)} genes "
         f"equals the one written from the in-process genes [{card}]")
-    return {"score": total["score"], "align": total["align"]}
+    with open(gene_fa) as f:
+        cli_fasta = f.read()
+    return dict(launches={"score": total["score"], "align": total["align"]},
+                parity=parity, parity_oracle=parity_oracle, config2=res,
+                rounds=rounds, cohort=got, cohort_in=(co, co_tax),
+                cli_argv=cli_argv, cli_fasta=cli_fasta, tmp=tmp)
+
+
+def run_cli(argv):
+    """`python -m rambl_tpu_torch.cli *argv` in a subprocess from the
+    repository root; raises when it exits with another code than 0."""
+    import os
+
+    r = subprocess.run(
+        [sys.executable, "-m", "rambl_tpu_torch.cli", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        raise AssertionError(f"rambl_tpu_torch.cli {argv[0]} exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    return r
+
+
+#: phase 14's mesh: virtual ranks of cuda:0, and config 2's three modes
+MESH_RANKS = 4
+MESH_MODES = {
+    "replicated": {},
+    "ring dma": dict(shard_index=True, ring_impl="dma"),
+    "ring dma, positions": dict(shard_index=True, ring_impl="dma",
+                                shard_positions=True),
+}
+
+
+def stats_of(result):
+    """An AssemblyResult's round stats without the stage timings."""
+    return [{k: v for k, v in st.items() if not k.startswith("t_")}
+            for st in result.round_stats]
+
+
+def same_run(what, got, want, stats=True):
+    """`got` equals `want` (two AssemblyResults of the port): n_rounds,
+    converged, the round stats (timings aside), the pre-polish panel and
+    every final gene's fields, round_born included."""
+    if (got.n_rounds, got.converged) != (want.n_rounds, want.converged):
+        raise AssertionError(f"{what}: rounds {got.n_rounds} converged "
+                             f"{got.converged}, one card's {want.n_rounds} "
+                             f"{want.converged}")
+    if stats and stats_of(got) != stats_of(want):
+        raise AssertionError(f"{what}: round stats {stats_of(got)} differ "
+                             f"from one card's {stats_of(want)}")
+    for part in ("panel", "genes"):
+        a, b = getattr(got, part), getattr(want, part)
+        if (gene_fields(a) != gene_fields(b)
+                or [g.round_born for g in a] != [g.round_born for g in b]):
+            raise AssertionError(f"{what}: {part} differs from one card's")
+
+
+def phase_mesh(dev, ds, index, tables, col_maps, cfg, card, ref):
+    """Phase 14: the assembly on a mesh of MESH_RANKS virtual ranks of the
+    card, each of (a)-(e) held to phase 13's single-device results `ref`
+    (a dict from `phase_assembly`)."""
+    import dataclasses
+    import os
+
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.data.simulate import simulate_dataset
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.ops import sw_cuda
+    from rambl_tpu_torch.ops.seed import SeedTable
+    from rambl_tpu_torch.parallel import ring_dma
+    from rambl_tpu_torch.parallel.mesh import data_mesh, put_sharded
+    from rambl_tpu_torch.parallel.ring import RingShards, build_ring_shards
+    from rambl_tpu_torch.parallel import steps as tsteps
+    from rambl_tpu_torch.parallel.steps import make_align_pileup_step
+    from rambl_tpu_torch.pipeline import assemble as tassemble
+    from rambl_tpu_torch.pipeline.pileup import node_pileup
+    from rambl_tpu_torch.utils.checkpoint import (
+        load_aux_evidence,
+        load_checkpoint,
+    )
+    from rambl_tpu_torch.utils.timing import cuda_time
+
+    mesh = data_mesh(devices=[dev] * MESH_RANKS)
+    real_round = tassemble.assemble_round
+
+    def reset():
+        sw_cuda.reset_launches()
+        ring_dma.reset_launches()
+
+    def launches():
+        return {**sw_cuda.LAUNCHES, **ring_dma.LAUNCHES}
+
+    # (a) the parity dataset, dense and slot; killed and resumed across
+    sm = simulate_dataset(**PARITY_DS)
+    sm_tax = build_taxonomy_tables(sm.tax_parent, sm.tax_depth, sm.ref_taxon)
+    sm_args = (sm.reads, sm.read_lens, sm.ref_seqs, sm.ref_lens, sm_tax)
+    for mode, extra in PARITY_MODES.items():
+        got = tassemble.assemble(*sm_args,
+                                 PipelineConfig(**PARITY_CFG, **extra),
+                                 mesh=mesh)
+        same_result(f"mesh parity ({mode})", got, ref["parity_oracle"])
+        same_run(f"mesh parity ({mode})", got, ref["parity"][mode])
+
+    class Killed(RuntimeError):
+        pass
+
+    def dying_round(*a, **kw):
+        out = real_round(*a, **kw)
+        calls["n"] += 1
+        if calls["n"] == 2:          # round 0 + round 1 done -> crash
+            raise Killed()
+        return out
+
+    pcfg = PipelineConfig(**PARITY_CFG)
+    sides = {"mesh": dict(mesh=mesh), "one card": dict(device=dev)}
+    for first, then in (("mesh", "one card"), ("one card", "mesh")):
+        ck = os.path.join(ref["tmp"], f"mesh_{first.replace(' ', '_')}.ckpt")
+        calls = {"n": 0}
+        tassemble.assemble_round = dying_round
+        try:
+            tassemble.assemble(*sm_args, pcfg, checkpoint_path=ck,
+                               **sides[first])
+            raise AssertionError("the run was not killed")
+        except Killed:
+            pass
+        finally:
+            tassemble.assemble_round = real_round
+        header, panel = load_checkpoint(ck)
+        aux = load_aux_evidence(ck + ".aux", pcfg)
+        resumed = tassemble.assemble(*sm_args, pcfg, initial_panel=panel,
+                                     initial_aux=aux, **sides[then])
+        if header["round"] != 0 or not resumed.round_stats[0]["aux_restored"]:
+            raise AssertionError(f"checkpoint after the kill: {header}")
+        same_run(f"killed on {first}, resumed on {then}", resumed,
+                 ref["parity"]["dense"], stats=False)
+    say(f"[14 mesh assembly] (a) {sm.reads.shape[0]} reads on {mesh} "
+        f"({MESH_RANKS} virtual ranks of cuda:0): dense and "
+        f"pileup_slot_nodes=1 equal phase 13 (a)'s one-card runs (rounds, "
+        f"stats, panel, genes) and the NumPy oracle; killed after round 1 "
+        f"on the mesh and resumed on one card, and the reverse, from the "
+        f"checkpoint and its sidecar: the one-card genes bit for bit")
+
+    # (b) config 2 at full width, three modes, round by round
+    want = ref["config2"]
+    args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tables)
+    for mode, extra in MESH_MODES.items():
+        mcfg = dataclasses.replace(cfg, **extra)
+        rounds = []
+
+        def recorded_round(*a, **kw):
+            torch.cuda.synchronize(dev)
+            before = launches()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            out = real_round(*a, **kw)
+            torch.cuda.synchronize(dev)
+            rounds.append(dict(
+                wall=time.perf_counter() - t0, stats=out[1],
+                peak=torch.cuda.max_memory_allocated(dev),
+                launches={k: v - before[k] for k, v in launches().items()}))
+            return out
+
+        os.environ["RAMBL_STAGE_TIMING"] = "1"
+        tassemble.assemble_round = recorded_round
+        try:
+            reset()
+            t0 = time.perf_counter()
+            res = tassemble.assemble(*args, mcfg, mesh=mesh)
+            torch.cuda.synchronize()
+            e2e_s = time.perf_counter() - t0
+            total = launches()
+        finally:
+            del os.environ["RAMBL_STAGE_TIMING"]
+            tassemble.assemble_round = real_round
+        same_run(f"config 2 on the mesh ({mode})", res, want)
+        after_rounds = {k: sum(r["launches"][k] for r in rounds)
+                        for k in total}
+        if any(total[k] != after_rounds[k] for k in total):
+            raise AssertionError(f"{mode}: polish launched "
+                                 f"{total} - {after_rounds}")
+        ring = mcfg.shard_index and mcfg.ring_impl == "dma"
+        for i, r in enumerate(rounds):
+            n = r["launches"]
+            if n["score"] <= 0 or n["align"] <= 0 or (ring and n["ring"] <= 0):
+                raise AssertionError(f"{mode}: round {i} launched {n}")
+        full = res.full_length(mcfg)
+        say(f"[14 mesh assembly] (b) config 2 on the mesh, {mode} "
+            f"({ds.reads.shape[0]} reads, max_assembly_iters "
+            f"{mcfg.max_assembly_iters}, polish on): {res.n_rounds} rounds, "
+            f"{len(res.genes)} genes, {len(full)} full-length, equal to "
+            f"phase 13 (b) (rounds, stats, panel, genes); wall {e2e_s:.3f} s"
+            f" (host clock, index and col maps built inside) = "
+            f"{len(full) / (e2e_s / 3600.0):.0f} genes/hour; polish "
+            f"launched nothing [{card}]")
+        for i, r in enumerate(rounds):
+            st = r["stats"]
+            say(f"    round {i}: wall {r['wall']:.3f} s: "
+                + ", ".join(f"{k[2:]} {v:.2f} s" for k, v in st.items()
+                            if k.startswith("t_"))
+                + f"; launches K1 {r['launches']['score']}, K2+K3 "
+                f"{r['launches']['align']}, K4 {r['launches']['ring']}; "
+                f"peak device memory {r['peak'] / 1e9:.3f} GB [{card}]")
+
+    # the cluster stage on the mesh, alone and with its member gathers
+    # timed apart (a sync around each), beside one card's on the same reads
+    cl = {}
+    leaves = np.unique(tables.ref_taxon)
+    for where in ("mesh", "one card", "mesh, gathers timed"):
+        kw = dict(device=dev) if where == "one card" else dict(mesh=mesh)
+        out = tassemble.stream_align(*args[:2], index, *args[2:], cfg,
+                                     col_maps=col_maps, **kw)
+        gather_s, real_gather = [0.0], tsteps.gather_members
+
+        def timed_gather(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            got = real_gather(*a, **kw)
+            torch.cuda.synchronize(dev)
+            gather_s[0] += time.perf_counter() - t0
+            return got
+
+        if where.endswith("timed"):
+            tsteps.gather_members = timed_gather
+        try:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            cons = tassemble.cluster_stage(*out, leaves, tables, cfg,
+                                           mesh=kw.get("mesh"))
+            cl[where] = (time.perf_counter() - t0, gather_s[0], cons)
+        finally:
+            tsteps.gather_members = real_gather
+        del out
+    for where in ("mesh", "mesh, gathers timed"):
+        if not all(np.array_equal(a, b) for a, b in zip(
+                (*cl[where][2][0], *cl[where][2][1:3], *cl[where][2][3]),
+                (*cl["one card"][2][0], *cl["one card"][2][1:3],
+                 *cl["one card"][2][3]))):
+            raise AssertionError(f"cluster stage ({where}) differs from one "
+                                 "card's")
+    say(f"    cluster stage on config 2's round-0 stream, {leaves.size} "
+        f"leaves: mesh {cl['mesh'][0]:.3f} s; with a sync around each "
+        f"member gather {cl['mesh, gathers timed'][0]:.3f} s, of which the "
+        f"gathers {cl['mesh, gathers timed'][1]:.3f} s; one card "
+        f"{cl['one card'][0]:.3f} s; outputs equal (host clock) [{card}]")
+
+    # (c) the cohort of phase 13 (e), its shared index sharded once
+    co, co_tax = ref["cohort_in"]
+    ccfg = PipelineConfig(**COHORT_CFG, shard_index=True, ring_impl="dma")
+    reset()
+    t0 = time.perf_counter()
+    got = tassemble.assemble_cohort(co.samples, co.ds.ref_seqs,
+                                    co.ds.ref_lens, co_tax, ccfg, mesh=mesh)
+    co_s = time.perf_counter() - t0
+    if len(got) != len(ref["cohort"]):
+        raise AssertionError("mesh cohort: samples differ")
+    for j, (g, w) in enumerate(zip(got, ref["cohort"])):
+        same_run(f"mesh cohort sample {j}", g, w)
+    say(f"[14 mesh assembly] (c) the cohort of phase 13 (e) on the mesh "
+        f"(shard_index, ring_impl=dma: one set of shards for every sample): "
+        f"equal to the one-card cohort in {co_s:.3f} s; launches "
+        f"{launches()} [{card}]")
+
+    # (d) make_align_pileup_step on config 2's first four batches
+    B = cfg.batch_size
+    table = SeedTable.from_index(index, dev)
+    st = tassemble.StreamTables.from_host(ds.ref_seqs, tables, col_maps, dev)
+    n_nodes, ref_len = tables.n_nodes, ds.ref_seqs.shape[1]
+    shards = RingShards(build_ring_shards(index, MESH_RANKS), mesh)
+    for mode, ring, positions in (("replicated", False, False),
+                                  ("ring dma, positions", True, True)):
+        dcfg = dataclasses.replace(cfg, shard_index=ring, ring_impl="dma",
+                                   shard_positions=positions)
+        step = make_align_pileup_step(mesh, dcfg, index.n_bits, n_nodes,
+                                      ref_len, ring=ring,
+                                      shard_positions=positions)
+        for b in range(4):
+            rd = ds.reads[b * B:(b + 1) * B]
+            ln = ds.read_lens[b * B:(b + 1) * B]
+            one = tassemble._align_bin_batch(
+                torch.from_numpy(rd.copy()).to(dev),
+                torch.from_numpy(ln.copy()).to(dev), table, st, dcfg)
+            c1, s1 = node_pileup(one[0], one[1], one[2], n_nodes, ref_len)
+            r1 = tassemble._read_count(one[2], n_nodes)
+            q, proj, bins, score, counts, span, rcount = step(
+                put_sharded(rd, mesh), put_sharded(ln, mesh),
+                shards if ring else [table] * MESH_RANKS, [st] * MESH_RANKS)
+            if positions:
+                counts = [torch.cat(counts, 1)]
+                span = [torch.cat(span, 1)[:, :ref_len + 1]]
+            ok = all(torch.equal(torch.cat(x), y) for x, y in
+                     zip((q, proj, bins, score), one[:4]))
+            ok &= all(torch.equal(x, c1) for x in counts)
+            ok &= all(torch.equal(x, s1) for x in span)
+            ok &= all(torch.equal(x, r1) for x in rcount)
+            if not ok:
+                raise AssertionError(f"make_align_pileup_step ({mode}) "
+                                     f"batch {b} differs from one card's")
+    torch.cuda.synchronize()
+    say(f"[14 mesh assembly] (d) make_align_pileup_step ({MESH_RANKS} "
+        f"ranks; replicated, and ring dma with shard_positions) on config "
+        f"2's first 4 batches of {B}: rows, counts, span_diff and read_count "
+        f"equal the one-card batch and its pileup bit for bit")
+
+    # K4 at config 2's shards, the size (b)'s ring modes rotate
+    def rot(impl):
+        mesh.fork()
+        shards.rotate(impl)
+        mesh.join()
+
+    k4 = {}
+    for impl in ("ppermute", "dma", "dma", "ppermute"):     # in turns
+        k4.setdefault(impl, []).append(cuda_time(rot, impl, iters=50))
+    shard_bytes = sum(x.numel() * x.element_size()
+                      for st_ in shards.state for x in st_)
+    say(f"    K4 one rotation of config 2's index shards ({MESH_RANKS} "
+        f"launches, {shard_bytes} B in all; CUDA events over 50 rotations, "
+        f"host gaps included, in turns plain, K4, K4, plain): dma "
+        + ", ".join(f"{t:.4f}" for t in k4["dma"]) + " ms; plain rotation "
+        "(ppermute) " + ", ".join(f"{t:.4f}" for t in k4["ppermute"])
+        + f" ms; bound "
+        f"{2 * shard_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) [{card}]")
+    del table, st, shards
+
+    # (e) the command line on a one-rank mesh
+    gene_fa = os.path.join(ref["tmp"], "cli", "genes.mesh1.fasta")
+    t0 = time.perf_counter()
+    run_cli([*ref["cli_argv"], "--out", gene_fa, "--mesh", "1"])
+    with open(gene_fa) as f:
+        if f.read() != ref["cli_fasta"]:
+            raise AssertionError("--mesh 1 wrote another FASTA than "
+                                 "phase 13 (e)'s")
+    say(f"[14 mesh assembly] (e) python -m rambl_tpu_torch.cli assemble "
+        f"--mesh 1 (a subprocess, {time.perf_counter() - t0:.1f} s) writes "
+        f"phase 13 (e)'s FASTA [{card}]")
 
 
 def require_equal(what: str, got, ref) -> int:
@@ -1717,7 +2070,12 @@ def main() -> None:
     del merged, counts, span_diff, read_count
 
     # ---- 13. the whole assembly ---------------------------------------------
-    asm_launches = phase_assembly(dev, ds, tables, cfg, card, oracles)
+    asm = phase_assembly(dev, ds, tables, cfg, card, oracles)
+    asm_launches = asm["launches"]
+
+    # ---- 14. the assembly on a mesh -----------------------------------------
+    phase_mesh(dev, ds, index, tables, col_maps, cfg, card, asm)
+    del asm
 
     peak = int32_ops_per_s(dev)
     n_path = PAIRS

@@ -24,14 +24,16 @@ Layout mirrors `rambl_tpu`:
   DP-means over a block of leaves; cluster and minor-haplotype consensus;
 - `pipeline.assemble.stream_align`: the batch stream over a whole read set,
   on one device or data-parallel over a `parallel.mesh.DataMesh`;
-- `pipeline.assemble.assemble_round`: round 0 of the assembly on one
-  device (stream, slot selection, clustering, consensus) -> genes;
+- `pipeline.assemble.assemble_round`: one round of the assembly (stream,
+  slot selection, clustering, consensus) -> genes;
 - `pipeline.assemble.assemble` / `polish` / `assemble_cohort`: the whole
-  assembly on one device (refinement rounds, polish, checkpoints and
-  resume, cohort phasing) -> final genes; `cli`: its command line;
-- `parallel.ring` / `ring_dma` / `steps`: the ring-sharded seed index, its
-  rotation K4 (`csrc/ring.cu`) with the plain `copy_` version, and the mesh
-  stream's steps;
+  assembly (refinement rounds, polish, checkpoints and resume, cohort
+  phasing) -> final genes; `cli`: its command line; each on one device or
+  data-parallel over a mesh (`mesh=`, `--mesh`);
+- `parallel.mesh` / `ring` / `ring_dma` / `steps`: the mesh of ranks and
+  the multi-host setup, the ring-sharded seed index, its rotation K4
+  (`csrc/ring.cu`) with the plain `copy_` version, and the round's mesh
+  steps (stream, merges, slot pileup, leaf-sharded clustering);
 - `bench`, `scripts.bench_sw_variants`, `scripts.ablate_prep`: the bench
   entry points.
 

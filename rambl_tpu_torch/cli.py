@@ -11,15 +11,19 @@ Subcommands:
   simulate  - generate a mock community (FASTA refs + FASTQ reads + truth)
   assemble  - run the whole assembly on one card (the first CUDA card
               unless --device names another device; `--device cpu` runs
-              the plain PyTorch path, `--oracle` the NumPy oracle)
+              the plain PyTorch path, `--oracle` the NumPy oracle), or
+              with `--mesh N` data-parallel on the first N cards (-1: all;
+              with `--device cpu`, N CPU ranks)
   bench     - `rambl_tpu_torch.bench` on one card
 
 `assemble` consumes a reference FASTA with a Greengenes-style taxonomy TSV
 (name<TAB>k__...;p__...;...) or falls back to one leaf per reference.
 Several --reads files are a cohort: one shared index, per-sample outputs
 (`OUT.sampleN.fasta`) and cross-sample phasing. `--profile DIR` writes a
-torch.profiler trace of the assembly; `--mesh` is refused (the round on a
-mesh is ROADMAP item 15).
+torch.profiler trace of the assembly. Under `--mesh` the process joins
+the process group its environment describes (`init_distributed`), adopts
+process 0's config and checks that every process read the same reference;
+a mesh across processes is refused.
 """
 
 from __future__ import annotations
@@ -132,8 +136,25 @@ def gene_records(genes):
     ]
 
 
+def _mesh_of(args):
+    """The --mesh N ranks: the first N visible cards (-1: all of them;
+    more than are visible is a UserError), or with --device cpu N CPU
+    ranks."""
+    import torch
+
+    from rambl_tpu_torch.parallel.mesh import data_mesh
+
+    n = args.mesh
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        if n < 1:
+            raise UserError(f"--mesh {n} with --device cpu: give the number "
+                            "of CPU ranks")
+        return data_mesh(devices=["cpu"] * n)
+    return data_mesh(n if n > 0 else None)
+
+
 def _run(args, samples, ref_seqs, ref_lens, tables, cfg, col_maps,
-         initial_panel):
+         initial_panel, mesh=None):
     """The assembly the flags ask for -> one AssemblyResult per sample."""
     if args.oracle and len(samples) > 1:
         from rambl_tpu_torch.oracle.cohort import assemble_cohort
@@ -150,13 +171,13 @@ def _run(args, samples, ref_seqs, ref_lens, tables, cfg, col_maps,
 
     if len(samples) > 1:
         return device_asm.assemble_cohort(samples, ref_seqs, ref_lens, tables,
-                                          cfg, col_maps=col_maps,
+                                          cfg, mesh=mesh, col_maps=col_maps,
                                           device=args.device)
     # per-round checkpoints: a crash/kill anywhere leaves the last round
     # boundary resumable (--resume-from); the final save below overwrites
     return [device_asm.assemble(samples[0][0], samples[0][1], ref_seqs,
                                 ref_lens, tables, cfg,
-                                initial_panel=initial_panel,
+                                initial_panel=initial_panel, mesh=mesh,
                                 checkpoint_path=args.checkpoint,
                                 col_maps=col_maps, device=args.device)]
 
@@ -170,10 +191,6 @@ def cmd_assemble(args) -> int:
     )
     from rambl_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.mesh:
-        print("error: --mesh is not ported yet: the round on a mesh is "
-              "ROADMAP item 15; run on one device", file=sys.stderr)
-        return 2
     cfg = PRESETS[args.preset] if args.preset else PipelineConfig()
     if args.config:
         with open(args.config) as f:
@@ -211,6 +228,25 @@ def cmd_assemble(args) -> int:
                   "active config; resuming anyway", file=sys.stderr)
         metrics.log("resume", round=header["round"], genes=len(initial_panel))
 
+    mesh = None
+    if args.mesh:
+        import hashlib
+
+        from rambl_tpu_torch.parallel.mesh import (
+            assert_hosts_agree,
+            init_distributed,
+            sync_host_config,
+        )
+
+        init_distributed()
+        mesh = _mesh_of(args)
+        # process 0's config wins everywhere, and every process must hold
+        # the same reference DB (the seed index is derived from it)
+        cfg = sync_host_config(cfg)
+        assert_hosts_agree("reference FASTA", hashlib.sha256(
+            ref_seqs.tobytes() + ref_lens.tobytes()).digest())
+        metrics.log("mesh", devices=mesh.size)
+
     if len(samples) > 1 and (args.resume_from or args.checkpoint):
         # the cohort paths (oracle and device) run the multi-sample loop with
         # cross-sample phasing and do not thread initial_panel/checkpoint
@@ -220,7 +256,8 @@ def cmd_assemble(args) -> int:
               "multi-sample (cohort) input; run per-sample or drop the flag",
               file=sys.stderr)
         return 2
-    run = (samples, ref_seqs, ref_lens, tables, cfg, col_maps, initial_panel)
+    run = (samples, ref_seqs, ref_lens, tables, cfg, col_maps, initial_panel,
+           mesh)
     if args.profile:
         import torch
         from torch.profiler import ProfilerActivity, profile
@@ -308,8 +345,8 @@ def main(argv=None) -> int:
     a.add_argument("--profile", help="write a torch.profiler trace "
                    "(trace.json) of the assembly to this dir")
     a.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="not ported: the round on a mesh is ROADMAP item 15 "
-                   "(any value but 0 is refused)")
+                   help="run data-parallel on the first N cards (-1: all; "
+                   "with --device cpu, N CPU ranks)")
     a.set_defaults(fn=cmd_assemble)
 
     b = sub.add_parser("bench", help="run rambl_tpu_torch.bench")

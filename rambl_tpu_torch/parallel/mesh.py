@@ -1,8 +1,7 @@
-"""A data-parallel mesh of ranks in one process.
+"""A data-parallel mesh of ranks in one process, and the multi-host setup.
 
-Port of `rambl_tpu/parallel/mesh.py` for the single-process case: the
-reference drives N local devices from one process through a 1-D `jax`
-mesh over the 'data' axis. Here a `DataMesh` is an explicit list of
+Port of `rambl_tpu/parallel/mesh.py`. The reference drives N local devices
+from one process through a 1-D `jax` mesh over the 'data' axis. Here a `DataMesh` is an explicit list of
 `torch.device`s, one per rank, and each rank on a CUDA card gets its own
 stream. A `shard_map` step becomes a loop over ranks, each rank's work
 issued on its device and stream between a `fork` (every rank stream waits
@@ -14,19 +13,32 @@ rank keeping its own column slice.
 A caller may list one card more than once: virtual ranks, each with its
 own stream, share that card's memory. Ranks on different cards reach each
 other through peer pointers (unified addressing with peer access enabled,
-`ring_dma` does that). Multi-host meshes (`init_distributed`,
-`broadcast_host_config`, ...) are not ported yet.
+`ring_dma` does that).
+
+Multi-host setup over `torch.distributed` (the reference's over
+`jax.distributed`): `init_distributed` joins the process group the
+environment describes, `broadcast_host_config` sends process 0's bytes to
+every process, and `sync_host_config` / `assert_hosts_agree` hold every
+process to process 0's config and inputs; in a world of one process all
+three are the identity. A mesh whose ranks span processes needs a
+cross-process psum and K4 between processes, neither of which one card can
+run, so `data_mesh` refuses to build one (ROADMAP item 15). The reference's
+`shard_spec` returns a `jax.sharding.PartitionSpec`, which means nothing
+without `shard_map`; it has no counterpart here.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from rambl_tpu_torch.device import require_cuda
+from rambl_tpu_torch.utils.errors import UserError
 
 DATA_AXIS = "data"
 
@@ -77,16 +89,115 @@ class DataMesh:
                 torch.cuda.current_stream(d).wait_stream(s)
 
 
+def init_distributed() -> bool:
+    """Join the process group the environment describes; True when this
+    process runs in one.
+
+    Gated on the environment, so that a single process is a no-op that
+    returns False: RAMBL_DISTRIBUTED, or torchrun's WORLD_SIZE > 1 with
+    MASTER_ADDR (the reference reads JAX_COORDINATOR_ADDRESS there).
+    `init_process_group` reads MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE
+    itself; the backend is nccl where CUDA is present, else gloo. Calling it
+    again is harmless."""
+    import torch.distributed as dist
+
+    want = bool(os.environ.get("RAMBL_DISTRIBUTED")
+                or (int(os.environ.get("WORLD_SIZE", "1")) > 1
+                    and os.environ.get("MASTER_ADDR")))
+    if not want:
+        return False
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend="nccl" if torch.cuda.is_available() else "gloo")
+    return True
+
+
+def process_count() -> int:
+    """Processes in the initialized process group (1 without one)."""
+    import torch.distributed as dist
+
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def process_index() -> int:
+    """This process's rank in the process group (0 without one)."""
+    import torch.distributed as dist
+
+    return (dist.get_rank()
+            if dist.is_available() and dist.is_initialized() else 0)
+
+
+def broadcast_host_config(payload: bytes) -> bytes:
+    """Process 0's bytes on every process (small host metadata: the config
+    JSON, an input fingerprint), the length first. A world of one process:
+    the identity."""
+    if process_count() == 1:
+        return payload
+    import torch.distributed as dist
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    n = torch.tensor([len(payload)], dtype=torch.int64, device=dev)
+    dist.broadcast(n, src=0)
+    buf = torch.zeros(int(n.item()), dtype=torch.uint8, device=dev)
+    if process_index() == 0:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    dist.broadcast(buf, src=0)
+    return buf.cpu().numpy().tobytes()
+
+
+def sync_host_config(cfg):
+    """Process 0's PipelineConfig on every process. Every process must run
+    the same pipeline; a process whose flags drifted (a stale launch
+    script, another preset) is told on stderr and adopts process 0's. A
+    world of one process: the identity. Returns the config to use."""
+    if process_count() == 1:
+        return cfg
+    from rambl_tpu_torch.config import PipelineConfig
+
+    payload = cfg.to_json().encode()
+    got = broadcast_host_config(payload)
+    if got != payload:
+        print(f"warning: process {process_index()} config differs from "
+              "process 0; adopting process 0's config", file=sys.stderr)
+    return PipelineConfig.from_json(got.decode())
+
+
+def assert_hosts_agree(tag: str, payload: bytes) -> None:
+    """Raise ValueError when this process's payload (the reference's
+    fingerprint) differs from process 0's: every process must read the same
+    inputs, or the merged pileups mean nothing. A world of one process: a
+    no-op."""
+    if process_count() == 1:
+        return
+    if broadcast_host_config(payload) != payload:
+        raise ValueError(
+            f"multi-host mismatch: {tag} on process {process_index()} "
+            "differs from process 0 (all hosts must load identical inputs)")
+
+
 def data_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None) -> DataMesh:
     """1-D mesh over the data axis: every visible CUDA card by default (the
-    first `n_devices` of them), or the listed devices ("cpu" ranks for the
-    plain path; one card listed several times gives virtual ranks)."""
+    first `n_devices` of them; more than are visible is a UserError), or
+    the listed devices ("cpu" ranks for the plain path; one card listed
+    several times gives virtual ranks). Refused (UserError) in a process
+    group of more than one process: a mesh across processes is not ported
+    (ROADMAP item 15), and each process must not quietly run alone."""
+    if process_count() > 1:
+        raise UserError(
+            f"a mesh across {process_count()} processes is not ported "
+            "(ROADMAP item 15: it needs a cross-process psum and K4 between "
+            "processes); run one process")
     if devices is None:
         require_cuda()
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
         if n_devices is not None:
+            if n_devices > len(devices):
+                raise UserError(f"a mesh of {n_devices} cards asked for, "
+                                f"{len(devices)} visible")
             devices = devices[:n_devices]
     return DataMesh(devices)
 

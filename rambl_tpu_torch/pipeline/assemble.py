@@ -21,7 +21,14 @@ against a shared index, then cross-sample covariation phasing. The
 reference pads each panel to a 32-gene bucket only so that XLA reuses one
 compiled executable; pad references are all-N and inert, so the port
 leaves the padding out (tests/test_torch_assemble.py shows it neutral).
-The round on a mesh is not ported (`mesh=` raises; ROADMAP item 15).
+
+Every entry point takes `mesh=` (a `parallel.mesh.DataMesh`; `device` is
+then unused): the stream runs data-parallel (`_stream_align_mesh`), the slot
+pileup and the clustering run as the reference's shard_map steps
+(`parallel.steps.make_slot_pileup_step`, `make_cluster_step`: each rank
+clusters a slice of the leaves), and the outputs are bitwise those of the
+same call without a mesh. Round-0 evidence kept for polish is rank 0's
+replica (whole rows), so checkpoints and sidecars do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -88,8 +95,9 @@ class _StageClock:
         if not self.on:
             return
         for x in sync:
-            if isinstance(x, torch.Tensor) and x.is_cuda:
-                torch.cuda.synchronize(x.device)
+            for t in (x if isinstance(x, list) else [x]):   # mesh: per rank
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    torch.cuda.synchronize(t.device)
         now = time.time()
         dt = now - self._last
         self.t[name] = round(self.t.get(name, 0.0) + dt, 2)
@@ -622,8 +630,23 @@ def _active_leaves(rc_host: np.ndarray, tables, cfg: PipelineConfig):
     return leaves, node2slot, n_slots
 
 
+def _replica(x, mesh):
+    """A mesh step's replicated per-rank output -> rank 0's copy; without a
+    mesh, x itself."""
+    return x if mesh is None else x[0]
+
+
+def _whole_rows(counts, cfg: PipelineConfig, mesh):
+    """The mesh stream's dense counts as whole (n_nodes, ref_len*4) rows on
+    rank 0: its replica, or with cfg.shard_positions the ranks' column
+    slices joined (the reference's consumers gather them on first use)."""
+    if not cfg.shard_positions:
+        return counts[0]
+    return torch.cat([c.to(mesh.devices[0]) for c in counts], 1)
+
+
 def cluster_stage(rec, counts, span_diff, read_count, leaves, tables,
-                  cfg: PipelineConfig, node2slot=None):
+                  cfg: PipelineConfig, node2slot=None, mesh=None):
     """Cluster + consensus for `leaves` (host int array) on the device of
     the stream's outputs `rec`; returns host arrays (cons ConsensusOut,
     kact, n_mem, mh MinorHap) in ascending leaf order.
@@ -634,51 +657,66 @@ def cluster_stage(rec, counts, span_diff, read_count, leaves, tables,
     bitwise identical. cfg.cluster_leaf_block bounds the leaves of one call:
     the per-leaf member tensors are (NL, max_bin_reads, ...); leaves are
     independent, so blocking is bitwise-neutral. The B-read bin sort is
-    made once for every block."""
-    dev = rec["bins"].device
-    rc_leaf = read_count.cpu().numpy()[leaves]
+    made once for every block.
+
+    With `mesh`, `rec` and the accumulators are `_stream_align_mesh`'s
+    per-rank outputs (counts as whole rows on every rank) and each block
+    runs `parallel.steps.make_cluster_step`: every rank clusters a slice of
+    the block's leaves over the sharded retention (the reference's
+    `_cluster_block` mesh branch)."""
+    rc_leaf = to_host(_replica(read_count, mesh))[leaves]
     sets = [(leaves[rc_leaf > 0], True), (leaves[rc_leaf == 0], False)]
     blk = cfg.cluster_leaf_block if cfg.cluster_leaf_block > 0 else leaves.size
     blk = max(1, blk)
-    anc = torch.as_tensor(tables.anc_path, dtype=torch.int32).to(dev)
-    dep = torch.as_tensor(tables.depth, dtype=torch.int32).to(dev)
-    n2s = (None if node2slot is None else
-           torch.as_tensor(node2slot, dtype=torch.int32).to(dev))
-    bin_ranges = bin_sort(rec["bins"], tables.n_nodes)
+    if mesh is None:
+        dev = rec["bins"].device
+        anc = torch.as_tensor(tables.anc_path, dtype=torch.int32).to(dev)
+        dep = torch.as_tensor(tables.depth, dtype=torch.int32).to(dev)
+        n2s = (None if node2slot is None else
+               torch.as_tensor(node2slot, dtype=torch.int32).to(dev))
+        bin_ranges = bin_sort(rec["bins"], tables.n_nodes)
+
+        def block(lb, spawn):
+            return [cluster_round0_core(
+                rec["query"], rec["ref_col"], rec["bins"], counts, span_diff,
+                read_count, torch.from_numpy(lb.astype(np.int32)).to(dev),
+                anc, dep, cfg, n2s, spawn=spawn, bin_ranges=bin_ranges)]
+    else:
+        from rambl_tpu_torch.parallel.mesh import put_replicated
+        from rambl_tpu_torch.parallel.steps import make_cluster_step
+
+        anc, dep = (put_replicated(np.asarray(a, np.int32), mesh)
+                    for a in (tables.anc_path, tables.depth))
+        n2s = (None if node2slot is None else
+               put_replicated(np.asarray(node2slot, np.int32), mesh))
+        steps = {spawn: make_cluster_step(mesh, cfg, slots=n2s is not None,
+                                          spawn=spawn)
+                 for spawn in (True, False)}
+
+        def block(lb, spawn):
+            outs = steps[spawn](rec["query"], rec["ref_col"], rec["bins"],
+                                counts, span_diff, read_count, lb, anc, dep,
+                                n2s)
+            return [o for o in outs if o is not None]   # rank order
+    # per block (and rank): called, emit, n_reads, kact, n_mem and the
+    # MinorHap's called, emit, n_reads, n_cols, fetched to the host
     parts, proc = [], []
     for lset, spawn in sets:
         for s in range(0, lset.size, blk):
             lb = lset[s: s + blk]
-            out = cluster_round0_core(
-                rec["query"], rec["ref_col"], rec["bins"], counts, span_diff,
-                read_count, torch.from_numpy(lb.astype(np.int32)).to(dev),
-                anc, dep, cfg, n2s, spawn=spawn, bin_ranges=bin_ranges)
-            cons_b, kact_b, n_mem_b, mh_b = out
             proc.append(lb)
-            parts.append(([x.cpu().numpy() for x in cons_b],
-                          kact_b.cpu().numpy(), n_mem_b.cpu().numpy(),
-                          [x.cpu().numpy() for x in mh_b]))
+            for cons_b, kact_b, n_mem_b, mh_b in block(lb, spawn):
+                parts.append([to_host(x) for x in (*cons_b, kact_b, n_mem_b,
+                                                   *mh_b)])
     order = np.argsort(np.concatenate(proc), kind="stable")  # ascending ids
-    cons = ConsensusOut(*(np.concatenate([p[0][i] for p in parts])[order]
-                          for i in range(3)))
-    kact = np.concatenate([p[1] for p in parts])[order]
-    n_mem = np.concatenate([p[2] for p in parts])[order]
-    mh = MinorHap(*(np.concatenate([p[3][i] for p in parts])[order]
-                    for i in range(4)))
-    return cons, kact, n_mem, mh
-
-
-def _no_mesh(entry: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{entry}(mesh=...) is not ported yet: the round on a mesh "
-            "(make_slot_pileup_step, make_cluster_step) is ROADMAP item 15")
+    cols = [np.concatenate([p[i] for p in parts])[order] for i in range(9)]
+    return ConsensusOut(*cols[:3]), cols[3], cols[4], MinorHap(*cols[5:])
 
 
 def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
                    round_idx=0, orig_taxon_of_node=None, index=None,
                    n_bits=None, aux_out=None, mesh=None, col_maps=None, *,
-                   device=None):
+                   device=None, ring_shards=None):
     """One align -> bin -> cluster -> consensus round on `device` (the first
     CUDA card when None; "cpu" for the plain PyTorch path): the device
     version of oracle.pipeline.assemble_round. Returns (genes, stats).
@@ -687,18 +725,26 @@ def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
     `n_bits` pins the hash-table geometry. `aux_out`, if a dict, receives
     the node-space pileup accumulator ("node_counts"), or in slot mode the
     slot accumulators and their host node2slot map ("slot_counts"), for the
-    final polish pass. The round on a mesh is not ported (`mesh` raises).
+    final polish pass. `mesh` runs the round data-parallel over its ranks
+    (the stream, the slot pileup, the leaf-sharded clustering), bitwise the
+    same; `ring_shards` (with cfg.shard_index) are `index`'s prebuilt
+    shards on that mesh (`stream_align`).
     """
-    _no_mesh("assemble_round", mesh)
-    device = resolve(device)
+    device = None if mesh is not None else resolve(device)
     clock = _StageClock()
     if index is None:
         index = build_seed_index(ref_seqs, ref_lens, k=cfg.k, n_bits=n_bits)
     clock.mark("index")
     rec, counts, span_diff, read_count = stream_align(
-        reads, lens, index, ref_seqs, ref_lens, tables, cfg,
-        col_maps=col_maps, device=device)
+        reads, lens, index, ref_seqs, ref_lens, tables, cfg, mesh=mesh,
+        col_maps=col_maps, device=device, ring_shards=ring_shards)
     clock.mark("align", rec["query"], counts, read_count)
+    if mesh is not None and counts is not None and cfg.shard_positions:
+        from rambl_tpu_torch.parallel.mesh import put_replicated
+
+        # the cluster step and aux need whole rows: gather them once
+        counts = put_replicated(_whole_rows(counts, cfg, mesh), mesh)
+    aligned = int((_replica(rec["bins"], mesh) >= 0).sum())
     node2slot = None
     if counts is None:
         # slot-compacted active-node mode (n_nodes > cfg.pileup_slot_nodes):
@@ -706,35 +752,40 @@ def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
         # ancestor chains that hold reads; one scatter pass builds the
         # compacted accumulators
         leaves, node2slot, n_slots = _active_leaves(
-            read_count.cpu().numpy(), tables, cfg)
+            to_host(_replica(read_count, mesh)), tables, cfg)
         if leaves.size == 0:
-            return [], dict(round=round_idx,
-                            aligned=int((rec["bins"] >= 0).sum()),
-                            n_leaves=0, genes=0)
-        counts, span_diff = node_slot_pileup(
-            rec["query"], rec["ref_col"], rec["bins"],
-            torch.from_numpy(node2slot).to(device), n_slots,
-            ref_seqs.shape[1])
+            return [], dict(round=round_idx, aligned=aligned, n_leaves=0,
+                            genes=0)
+        if mesh is None:
+            counts, span_diff = node_slot_pileup(
+                rec["query"], rec["ref_col"], rec["bins"],
+                torch.from_numpy(node2slot).to(device), n_slots,
+                ref_seqs.shape[1])
+        else:
+            from rambl_tpu_torch.parallel.mesh import put_replicated
+            from rambl_tpu_torch.parallel.steps import make_slot_pileup_step
+
+            counts, span_diff = make_slot_pileup_step(
+                mesh, n_slots, ref_seqs.shape[1])(
+                    rec["query"], rec["ref_col"], rec["bins_sh"],
+                    put_replicated(node2slot, mesh))
         if aux_out is not None:
-            aux_out["slot_counts"] = (counts, node2slot)
+            aux_out["slot_counts"] = (_replica(counts, mesh), node2slot)
         clock.mark("slot_pileup", counts)
     else:
         leaves = np.unique(tables.ref_taxon)
         if aux_out is not None:
-            aux_out["node_counts"] = counts
+            aux_out["node_counts"] = _replica(counts, mesh)
     cons, kact, n_mem, mh = cluster_stage(
-        rec, counts, span_diff, read_count, leaves, tables, cfg, node2slot)
+        rec, counts, span_diff, read_count, leaves, tables, cfg, node2slot,
+        mesh=mesh)
     clock.mark("cluster")
     genes = _genes_from_consensus(
         cons.called, cons.emit, cons.n_reads, kact, leaves, n_mem, cfg,
         round_idx, orig_taxon_of_node, mh=mh,
     )
-    stats = dict(
-        round=round_idx,
-        aligned=int((rec["bins"] >= 0).sum()),
-        n_leaves=int(leaves.size),
-        genes=0,
-    )
+    stats = dict(round=round_idx, aligned=aligned,
+                 n_leaves=int(leaves.size), genes=0)
     genes = _dedupe_cap(genes, cfg)
     stats["genes"] = len(genes)
     clock.mark("genes_host")
@@ -755,7 +806,7 @@ def _panel_bits(cfg):
 def leaf_counts_dict(reads, lens, ref_seqs, ref_lens, tables,
                      cfg: PipelineConfig, taxa, node_counts=None,
                      slot_counts=None, shared_index=None, mesh=None,
-                     col_maps=None, *, device=None):
+                     col_maps=None, *, device=None, ring_shards=None):
     """{taxon: (ref_len, 4) np.int32} leaf-EXCLUSIVE round-0 pileups for the
     given taxa (oracle.polish.leaf_exclusive_counts semantics). The node-space
     accumulator built during the discovery round IS the per-leaf exclusive
@@ -765,29 +816,41 @@ def leaf_counts_dict(reads, lens, ref_seqs, ref_lens, tables,
     each fetched to the host once) no extra device work is needed;
     otherwise one stream on `device` against the original index recomputes
     it bit-identically (in slot mode with `node_slot_pileup` over the
-    requested taxa). Shared by the polish pass and cohort phasing."""
-    _no_mesh("leaf_counts_dict", mesh)
-    device = resolve(device)
+    requested taxa). With `mesh` the recompute runs on its ranks
+    (`ring_shards`: the index's prebuilt shards, see `stream_align`).
+    Shared by the polish pass and cohort phasing."""
+    device = None if mesh is not None else resolve(device)
     ref_len = ref_seqs.shape[1]
     taxa = np.unique(np.asarray(taxa)).astype(np.int64)
     if node_counts is None and slot_counts is None:
         index = shared_index if shared_index is not None else build_seed_index(
             ref_seqs, ref_lens, k=cfg.k)
         rec, counts, _, read_count = stream_align(
-            reads, lens, index, ref_seqs, ref_lens, tables, cfg,
-            col_maps=col_maps, device=device)
+            reads, lens, index, ref_seqs, ref_lens, tables, cfg, mesh=mesh,
+            col_maps=col_maps, device=device, ring_shards=ring_shards)
         if counts is not None:
-            node_counts = counts
+            node_counts = (counts if mesh is None
+                           else _whole_rows(counts, cfg, mesh))
         else:
             # slot-mode recompute: only the requested taxa need counts
-            rc_host = read_count.cpu().numpy()
+            rc_host = to_host(_replica(read_count, mesh))
             ids = taxa[rc_host[taxa] > 0].astype(np.int32)
             node2slot = np.full(tables.n_nodes, -1, np.int32)
             node2slot[ids] = np.arange(ids.size, dtype=np.int32)
             n_slots = max(64, -(-max(ids.size, 1) // 64) * 64)
-            counts_s, _ = node_slot_pileup(
-                rec["query"], rec["ref_col"], rec["bins"],
-                torch.from_numpy(node2slot).to(device), n_slots, ref_len)
+            if mesh is None:
+                counts_s, _ = node_slot_pileup(
+                    rec["query"], rec["ref_col"], rec["bins"],
+                    torch.from_numpy(node2slot).to(device), n_slots, ref_len)
+            else:
+                from rambl_tpu_torch.parallel.mesh import put_replicated
+                from rambl_tpu_torch.parallel.steps import (
+                    make_slot_pileup_step,
+                )
+
+                counts_s = make_slot_pileup_step(mesh, n_slots, ref_len)(
+                    rec["query"], rec["ref_col"], rec["bins_sh"],
+                    put_replicated(node2slot, mesh))[0][0]
             slot_counts = (counts_s, node2slot)
         del rec
     if node_counts is not None:
@@ -810,15 +873,15 @@ def leaf_counts_dict(reads, lens, ref_seqs, ref_lens, tables,
 
 def polish(reads, lens, genes, ref_seqs, ref_lens, tables,
            cfg: PipelineConfig, node_counts=None, slot_counts=None,
-           shared_index=None, mesh=None, col_maps=None, *, device=None):
+           shared_index=None, mesh=None, col_maps=None, *, device=None,
+           ring_shards=None):
     """Polish pass (see oracle.polish): leaf-exclusive re-vote of the final
     panel from round-0 node pileups (evidence via leaf_counts_dict, which
-    re-streams round 0 on `device` only when none was retained). Returns
-    (genes, n_changed)."""
+    re-streams round 0 on `device`, or on `mesh`, only when none was
+    retained). Returns (genes, n_changed)."""
     from rambl_tpu_torch.oracle.polish import anchor_seqs_of, apply_polish
 
-    _no_mesh("polish", mesh)
-    device = resolve(device)
+    device = None if mesh is not None else resolve(device)
     if not genes:
         return genes, 0
     # retained dense accumulators cover every leaf; slot/recompute paths only
@@ -828,7 +891,8 @@ def polish(reads, lens, genes, ref_seqs, ref_lens, tables,
     counts_dict = leaf_counts_dict(
         reads, lens, ref_seqs, ref_lens, tables, cfg, taxa=taxa,
         node_counts=node_counts, slot_counts=slot_counts,
-        shared_index=shared_index, col_maps=col_maps, device=device)
+        shared_index=shared_index, mesh=mesh, col_maps=col_maps,
+        device=device, ring_shards=ring_shards)
     anchor = anchor_seqs_of(ref_seqs, ref_lens, tables.ref_taxon)
     return apply_polish(genes, counts_dict, anchor, cfg)
 
@@ -836,7 +900,7 @@ def polish(reads, lens, genes, ref_seqs, ref_lens, tables,
 def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
              shared_index=None, initial_panel=None, mesh=None,
              checkpoint_path=None, aux_out=None, col_maps=None,
-             initial_aux=None, *, device=None):
+             initial_aux=None, *, device=None, ring_shards=None):
     """The whole assembly on `device` (the first CUDA card when None; "cpu"
     for the plain PyTorch path): the device version of
     oracle.pipeline.assemble, with its convergence loop (every round is a
@@ -851,7 +915,10 @@ def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
     ("node_counts" dense or "slot_counts", tensors on `device`); empty on
     resumed runs unless initial_aux (utils.checkpoint.load_aux_evidence)
     restores them, which also spares polish the round-0 re-stream.
-    The round on a mesh is not ported (`mesh` raises)."""
+    `mesh` runs every round and polish's re-stream on its ranks, bitwise
+    the same; `ring_shards` (with cfg.shard_index): `shared_index`'s
+    prebuilt shards on that mesh, for round 0 and polish (each panel round
+    shards its own index)."""
     from rambl_tpu_torch.index.colmap import nw_tier
     from rambl_tpu_torch.oracle.pipeline import (
         AssemblyResult,
@@ -863,8 +930,7 @@ def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
         save_checkpoint,
     )
 
-    _no_mesh("assemble", mesh)
-    device = resolve(device)
+    device = None if mesh is not None else resolve(device)
 
     def _ckpt(genes, round_idx, stats):
         if checkpoint_path:
@@ -875,7 +941,8 @@ def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
     if initial_panel is None:
         genes, stats = assemble_round(
             reads, lens, ref_seqs, ref_lens, tables, cfg, round_idx=0,
-            index=shared_index, aux_out=aux, col_maps=col_maps, device=device)
+            index=shared_index, aux_out=aux, mesh=mesh, col_maps=col_maps,
+            device=device, ring_shards=ring_shards)
         round_stats.append(stats)
         _ckpt(genes, 0, round_stats)
         if checkpoint_path and aux:
@@ -897,7 +964,7 @@ def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
         pseqs, plens = pad_panel(genes, ref_seqs.shape[1])
         genes, stats = assemble_round(
             reads, lens, pseqs, plens, panel_tables(genes, tables), cfg,
-            round_idx=it, n_bits=_panel_bits(cfg), device=device)
+            round_idx=it, n_bits=_panel_bits(cfg), mesh=mesh, device=device)
         round_stats.append(stats)
         _ckpt(genes, it, round_stats)
         new_key = tuple(sorted(g.key() for g in genes))
@@ -916,7 +983,8 @@ def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
             reads, lens, genes, ref_seqs, ref_lens, tables, cfg,
             node_counts=(aux or {}).get("node_counts"),
             slot_counts=(aux or {}).get("slot_counts"),
-            shared_index=shared_index, col_maps=col_maps, device=device)
+            shared_index=shared_index, mesh=mesh, col_maps=col_maps,
+            device=device, ring_shards=ring_shards)
         pstats = dict(round="polish", changed=n_changed, nw_tier=nw_tier())
         if _stage_timing():
             pstats["t_polish"] = round(time.time() - t_pol, 2)
@@ -937,21 +1005,27 @@ def assemble_cohort(samples, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
     before the next sample runs, so device buffers do not pile up; finally
     cross-sample abundance-covariation phasing (oracle/cohort.py) over the
     per-sample leaf-exclusive pileups. Returns one AssemblyResult per
-    sample. The round on a mesh is not ported (`mesh` raises)."""
+    sample. With `mesh` every sample runs on its ranks; with cfg.shard_index
+    the shared index is sharded over them once, and every sample's round 0,
+    polish and phasing evidence rotate those shards."""
     from rambl_tpu_torch.oracle.cohort import cohort_phase
     from rambl_tpu_torch.oracle.polish import anchor_seqs_of
 
-    _no_mesh("assemble_cohort", mesh)
-    device = resolve(device)
+    device = None if mesh is not None else resolve(device)
     shared_index = build_seed_index(ref_seqs, ref_lens, k=cfg.k)
+    shards = None
+    if mesh is not None and cfg.shard_index:
+        from rambl_tpu_torch.parallel.ring import RingShards, build_ring_shards
+
+        shards = RingShards(build_ring_shards(shared_index, mesh.size), mesh)
     do_phase = cfg.cohort_phase and len(samples) >= 2
     results, retained = [], []
     for reads, lens in samples:
         aux = {} if do_phase else None
         results.append(assemble(
             reads, lens, ref_seqs, ref_lens, tables, cfg,
-            shared_index=shared_index, aux_out=aux, col_maps=col_maps,
-            device=device))
+            shared_index=shared_index, aux_out=aux, mesh=mesh,
+            col_maps=col_maps, device=device, ring_shards=shards))
         if do_phase:
             slot = aux.get("slot_counts")
             retained.append(dict(
@@ -968,8 +1042,9 @@ def assemble_cohort(samples, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
         return results
     counts_list = [
         leaf_counts_dict(reads, lens, ref_seqs, ref_lens, tables, cfg,
-                         taxa=taxa, shared_index=shared_index,
-                         col_maps=col_maps, device=device, **retained[j])
+                         taxa=taxa, shared_index=shared_index, mesh=mesh,
+                         col_maps=col_maps, device=device, ring_shards=shards,
+                         **retained[j])
         for j, (reads, lens) in enumerate(samples)
     ]
     anchor = anchor_seqs_of(ref_seqs, ref_lens, tables.ref_taxon)

@@ -124,11 +124,3 @@ def test_aux_out_and_panel_padding(tiny, jax_dense):
                                           device="cpu")
     assert gene_fields(got) == gene_fields(jax_dense.panel)
     assert stats == jax_dense.round_stats[1]
-
-
-def test_assemble_on_a_mesh_is_not_ported(tiny):
-    for entry, args in (("assemble", args_of(*tiny)),
-                        ("assemble_cohort", ([], *args_of(*tiny)[2:]))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            getattr(tassemble, entry)(*args, TConfig(), mesh=object(),
-                                      device="cpu")

@@ -7,8 +7,10 @@ package's.
   `assemble_jax`'s genes give on the same files and config, with the
   reference CLI's headers (`gene{i}|reads=…|taxon=…|len=…`); its metrics
   JSONL and its final checkpoint (the pre-polish panel) follow;
-- `--mesh 2`, several `--reads` with `--checkpoint`, and a missing input
-  are refused with exit code 2.
+- `--mesh` with more cards than are visible, `--mesh` in a process group
+  of more than one process, several `--reads` with `--checkpoint`, and a
+  missing input are refused with exit code 2 (`--mesh` itself:
+  tests/test_torch_mesh_cohort.py).
 """
 
 import argparse
@@ -17,6 +19,7 @@ import json
 import os
 
 import pytest
+import torch
 from test_torch_assemble import gene_fields, one_thread
 
 from rambl_tpu import cli as jcli
@@ -26,6 +29,7 @@ from rambl_tpu.io.loader import load_fastq_codes
 from rambl_tpu.io.pack import decode_seq, encode_batch
 from rambl_tpu.pipeline.assemble import assemble_jax
 from rambl_tpu_torch import cli as tcli
+from rambl_tpu_torch.parallel import mesh as tmesh
 from rambl_tpu_torch.utils.checkpoint import load_checkpoint
 
 __all__ = ["one_thread"]      # the fixture shared with that module
@@ -109,13 +113,25 @@ def test_assemble_matches_assemble_jax(sim):
     assert os.path.exists(ck + ".aux")
 
 
-def test_assemble_refusals(sim, capsys):
+def test_assemble_refusals(sim, capsys, monkeypatch):
     d, out = sim
     base = ["assemble", "--reference", os.path.join(out, "refs.fasta"),
             "--out", str(d / "no.fasta"), "--device", "cpu"]
     reads = os.path.join(out, "reads.fastq")
-    assert tcli.main([*base, "--reads", reads, "--mesh", "2"]) == 2
-    assert "ROADMAP item 15" in capsys.readouterr().err
+    # --mesh 2 on the cards of a machine with one visible card (the
+    # reference's devices[:n] quietly takes fewer)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        assert tcli.main([*base[:-2], "--reads", reads, "--mesh", "2"]) == 2
+    assert "a mesh of 2 cards asked for, 1 visible" in capsys.readouterr().err
+    # a process group of two processes: a mesh across them is not ported
+    with monkeypatch.context() as m:
+        m.setattr(tmesh, "process_count", lambda: 2)
+        assert tcli.main([*base, "--reads", reads, "--mesh", "2"]) == 2
+    err = capsys.readouterr().err
+    assert "a mesh across 2 processes is not ported" in err
+    assert "ROADMAP item 15" in err
     assert tcli.main([*base, "--reads", reads, reads, "--checkpoint",
                       str(d / "c.ckpt")]) == 2
     assert "not supported with multi-sample" in capsys.readouterr().err

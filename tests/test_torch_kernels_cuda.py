@@ -755,3 +755,43 @@ def test_resume_from_checkpoint_on_card(dev, tmp_path):
     assert _fields(panel) == _fields(full.panel)
     assert _fields(resumed.genes, born=False) == _fields(full.genes,
                                                          born=False)
+
+
+def test_assemble_on_virtual_ranks_matches_one_card(dev):
+    """The whole assembly on a mesh of 4 virtual ranks of the card (the
+    leaf-sharded cluster step, the merged pileups) == the same call on one
+    card: rounds, round stats, pre-polish panel and polished genes."""
+    from rambl_tpu_torch.pipeline.assemble import assemble
+
+    args, cfg = _parity_inputs()
+    one = assemble(*args, cfg, device=dev)
+    sw_cuda.reset_launches()
+    mesh = assemble(*args, cfg, mesh=data_mesh(devices=[dev] * 4))
+    assert sw_cuda.LAUNCHES["score"] >= 4 * mesh.n_rounds
+    assert (mesh.n_rounds, mesh.converged) == (one.n_rounds, one.converged)
+    assert mesh.round_stats == one.round_stats
+    assert _fields(mesh.panel) == _fields(one.panel)
+    assert _fields(mesh.genes) == _fields(one.genes) and len(one.genes) > 3
+
+
+def test_ring_dma_assembly_launches_k4_every_round(dev, monkeypatch):
+    """shard_index with ring_impl="dma" on 4 virtual ranks: K4 rotates the
+    index shards in every round, and the genes are the one-card run's."""
+    from rambl_tpu_torch.pipeline import assemble as asm
+
+    args, cfg = _parity_inputs(shard_index=True, ring_impl="dma")
+    real_round, k4 = asm.assemble_round, []
+
+    def counted_round(*a, **kw):
+        before = ring_dma.LAUNCHES["ring"]
+        out = real_round(*a, **kw)
+        k4.append(ring_dma.LAUNCHES["ring"] - before)
+        return out
+
+    monkeypatch.setattr(asm, "assemble_round", counted_round)
+    mesh = asm.assemble(*args, cfg, mesh=data_mesh(devices=[dev] * 4))
+    monkeypatch.setattr(asm, "assemble_round", real_round)
+    assert len(k4) == mesh.n_rounds and all(n > 0 for n in k4), k4
+    one = asm.assemble(*args, cfg, device=dev)
+    assert _fields(mesh.genes) == _fields(one.genes)
+    assert mesh.round_stats == one.round_stats

@@ -179,11 +179,3 @@ def test_assemble_round_orig_taxon(tiny):
     ref, got = _both_rounds(ds, tax, BASE, orig_taxon_of_node=orig)
     _check_round(ref, got)
     assert all(g.taxon == orig[g.leaf] for g in got[0])
-
-
-def test_assemble_round_on_a_mesh_is_not_ported(tiny):
-    ds, tax = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tassemble.assemble_round(ds.reads, ds.read_lens, ds.ref_seqs,
-                                 ds.ref_lens, tax, TConfig(), 0,
-                                 mesh=object(), device="cpu")
