@@ -2,9 +2,10 @@
 """Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU: the read
 stream, the K1 bench path (bench, S1 variant sweep, S2 prep ablation), the
 data-parallel read stream with a ring-sharded index on a mesh of four
-virtual ranks of the card (K4, the ring rotation), round 0 of the assembly
-and the whole assembly (reads -> final genes: refinement rounds, polish,
-checkpoint and resume, cohort phasing, the command line).
+virtual ranks of the card (K4, the ring rotation), round 0 of the assembly,
+the whole assembly (reads -> final genes: refinement rounds, polish,
+checkpoint and resume, cohort phasing, the command line), on one card and
+on a mesh, and the scale ladder's runners (configs 2-5) at cut depth.
 
 Run from the repository root, with no arguments:
 
@@ -118,7 +119,26 @@ code is non-zero and no result line is printed:
    (d) `make_align_pileup_step` on config 2's first four batches equals the
    one-card batch and its pileup; K4 timed on config 2's index shards. (e) `cli assemble --mesh 1` in a
    subprocess writes 13 (e)'s FASTA. The ranks share one card's SMs and
-   memory: these are not multi-card times.
+   memory: these are not multi-card times;
+15. the scale ladder: the runners `rambl_tpu_torch.scripts.run_config2` ..
+   `run_config5` on cuda:0 through their `run` functions (stage timing on;
+   every runner's own lines go to standard error), each cut printed. (a)
+   Config 2 at full size (phase 4's dataset: 1 M reads, max_genes 256, 4
+   iterations). (b) Config 3 at 1,000,000 of its 10 M
+   reads (phase 10's dataset and index; max_genes 2048): slot mode engages
+   and round 0 clusters more than one block of 512 leaves; K1 and K2 + K3
+   launch in every round and not in polish; what is allocated at each
+   panel round's start does not climb; round 0's cluster stage equals its
+   rerun on CPU tensors for 16 of its leaves (spawn and light ones, and
+   the leaves with the most members, at max_bin_reads); recovery, genes,
+   stages and peak memory are printed, with no bar at this depth. (c)
+   Config 5 at 500,000 of its 20 M reads (its chunked generator on phase
+   10's panel): phase A (discovery + checkpoint in a temporary directory),
+   then phase B from disk with the `.aux` sidecar, equal to an
+   uninterrupted run of the same config (rounds, stats but timings, panel,
+   genes); phase B's polish launches no K1. (d) Config 4 at full size (8
+   species x 5 strains, 5 samples of 5,120 reads): with phasing 36/40
+   recovered, without 22/40 (SCALE_r5.json's counts).
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
 main path (for K1 and K2 + K3 the whole assembly of phase 13 (b)), error
@@ -138,6 +158,7 @@ import numpy as np
 import torch
 
 from rambl_tpu_torch.device import card_line, require_cuda
+from rambl_tpu_torch.scripts import quality_bench
 
 N_READS = 1_000_000
 SEED = 7
@@ -515,18 +536,8 @@ PARITY_DS = dict(n_species=3, refs_per_species=2, n_reads=400, seed=2,
                  skewed_abundance=False)
 PARITY_CFG = dict(max_assembly_iters=2, batch_size=128)
 PARITY_MODES = {"dense": {}, "slot": dict(pileup_slot_nodes=1)}
-#: scripts/quality_bench.py's scenarios and config (its SCENARIOS, main)
-QUALITY = [
-    ("uniform-2strain", dict(n_species=5, refs_per_species=2, n_reads=1500,
-                             seed=1, skewed_abundance=False)),
-    ("skewed-2strain", dict(n_species=5, refs_per_species=2, n_reads=1500,
-                            seed=2, skewed_abundance=True)),
-    ("single-strain", dict(n_species=8, refs_per_species=1, n_reads=2000,
-                           seed=3, skewed_abundance=False)),
-    ("deep-uniform", dict(n_species=3, refs_per_species=1, n_reads=3000,
-                          seed=4, skewed_abundance=False)),
-]
-QUALITY_CFG = dict(max_assembly_iters=4, batch_size=512)
+#: quality_bench's scenarios and config
+QUALITY, QUALITY_CFG = quality_bench.SCENARIOS, quality_bench.CONFIG
 QUALITY_BAR = 27           # the reference's record, SURVEY.md:523
 #: phase 13's cohort: 3 species x 2 strains, 2 samples of 2,000 reads
 COHORT_DS = dict(n_species=3, refs_per_species=2, n_samples=2,
@@ -591,27 +602,6 @@ def stop_oracles():
         _POOL.join()
 
 
-def recovered(ds, genes, k=25):
-    """scripts/quality_bench.py's metric: references of >= 5x simulated
-    coverage with a gene at > 95% 25-mer containment -> (recovered,
-    detectable)."""
-    from rambl_tpu_torch.io.pack import decode_seq
-
-    def kmers(s):
-        return set(s[i: i + k] for i in range(len(s) - k + 1))
-
-    refk = [kmers(decode_seq(ds.ref_seqs[r, : ds.ref_lens[r]]))
-            for r in range(ds.n_refs)]
-    cov = np.bincount(ds.true_ref, minlength=ds.n_refs) * 100 / ds.ref_lens
-    best = {int(r): 0.0 for r in np.nonzero(cov >= 5)[0]}
-    for g in genes:
-        gk = kmers(decode_seq(g.seq))
-        r = max(range(ds.n_refs), key=lambda x: len(gk & refk[x]))
-        if r in best:
-            best[r] = max(best[r], len(gk & refk[r]) / max(len(gk), 1))
-    return sum(c > 0.95 for c in best.values()), len(best)
-
-
 def same_result(what, got, want, genes=True):
     """The card's AssemblyResult equals the oracle's: n_rounds, converged,
     the pre-polish panel, polish's `changed` and (genes) every final
@@ -654,6 +644,7 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     from rambl_tpu_torch.io.pack import encode_batch
     from rambl_tpu_torch.ops import sw_cuda
     from rambl_tpu_torch.pipeline import assemble as tassemble
+    from rambl_tpu_torch.scripts.ladder import RoundRecorder
     from rambl_tpu_torch.utils.checkpoint import (
         load_aux_evidence,
         load_checkpoint,
@@ -686,66 +677,28 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
         f"{want_s:.1f} s in a worker, waited {waited:.1f} s) [{card}]")
 
     # (b) config 2 at full width, round by round
-    rounds, col_s = [], [0.0]
-    real_round, real_maps = tassemble.assemble_round, tassemble.build_col_maps
-
-    def timed_maps(*a, **kw):
-        t0 = time.perf_counter()
-        out = real_maps(*a, **kw)
-        col_s[0] += time.perf_counter() - t0
-        return out
-
-    def recorded_round(*a, **kw):
-        torch.cuda.synchronize(dev)
-        before, maps0 = dict(sw_cuda.LAUNCHES), col_s[0]
-        start = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        out = real_round(*a, **kw)
-        torch.cuda.synchronize(dev)
-        rounds.append(dict(
-            wall=time.perf_counter() - t0, stats=out[1], start=start,
-            colmap=col_s[0] - maps0,
-            peak=torch.cuda.max_memory_allocated(dev),
-            launches={k: sw_cuda.LAUNCHES[k] - before[k] for k in before}))
-        return out
-
     tmp = tempfile.mkdtemp(prefix="rambl_smoke_")
     args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tables)
     os.environ["RAMBL_STAGE_TIMING"] = "1"
-    tassemble.assemble_round = recorded_round
-    tassemble.build_col_maps = timed_maps
     try:
         sw_cuda.reset_launches()
-        t0 = time.perf_counter()
-        res = tassemble.assemble(*args, cfg,
-                                 checkpoint_path=os.path.join(tmp, "b.ckpt"),
-                                 device=dev)
-        torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
-        total = dict(sw_cuda.LAUNCHES)
+        with RoundRecorder(dev) as recorder:
+            t0 = time.perf_counter()
+            res = tassemble.assemble(
+                *args, cfg, checkpoint_path=os.path.join(tmp, "b.ckpt"),
+                device=dev)
+            recorder.sync()
+            e2e_s = time.perf_counter() - t0
     finally:
         del os.environ["RAMBL_STAGE_TIMING"]
-        tassemble.assemble_round = real_round
-        tassemble.build_col_maps = real_maps
-    after_rounds = {k: sum(r["launches"][k] for r in rounds) for k in total}
-    polish_launches = {k: total[k] - after_rounds[k] for k in total}
-    if len(rounds) != res.n_rounds:
-        raise AssertionError(f"{len(rounds)} rounds recorded, "
+    total = recorder.total
+    if len(recorder.rounds) != res.n_rounds:
+        raise AssertionError(f"{len(recorder.rounds)} rounds recorded, "
                              f"{res.n_rounds} reported")
-    for i, r in enumerate(rounds):
-        if r["launches"]["score"] <= 0 or r["launches"]["align"] <= 0:
-            raise AssertionError(f"round {i} launched {r['launches']}: K1 "
-                                 "and K2+K3 must launch in every round")
-    if any(polish_launches.values()):
-        raise AssertionError(f"polish launched {polish_launches}: with the "
-                             "retained counts it must not re-stream round 0")
-    # nothing of a round stays allocated into the next (round 0's retained
-    # counts aside, which every later round carries alike)
-    starts = [r["start"] for r in rounds[1:]]
-    if starts and max(starts) > starts[0] + (1 << 20):
-        raise AssertionError(f"device memory at the start of each panel "
-                             f"round climbs: {starts}")
+    # K1 and K2+K3 in every round, none in polish (the retained counts
+    # spare it the round-0 re-stream); nothing of a round stays allocated
+    # into the next (round 0's retained counts aside)
+    recorder.check("config 2")
     full = res.full_length(cfg)
     pol = res.round_stats[-1]
     genes_per_hour = len(full) / (e2e_s / 3600.0)
@@ -755,21 +708,12 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
         f"genes, {len(full)} full-length (>= {cfg.full_len_min}); wall "
         f"{e2e_s:.3f} s (host clock, index and col maps built inside) = "
         f"{genes_per_hour:.0f} genes/hour [{card}]")
-    for i, r in enumerate(rounds):
-        st = r["stats"]
-        say(f"    round {i}: {st['genes']} genes, {st['n_leaves']} leaves, "
-            f"{st['aligned']} aligned; wall {r['wall']:.3f} s: "
-            + ", ".join(f"{k[2:]} {v:.2f} s" for k, v in st.items()
-                        if k.startswith("t_"))
-            + f" (align includes the col maps' build {r['colmap']:.2f} s); "
-            f"launches K1 {r['launches']['score']}, K2+K3 "
-            f"{r['launches']['align']}; peak device memory "
-            f"{r['peak'] / 1e9:.3f} GB (allocated at its start "
-            f"{r['start'] / 1e9:.3f} GB) [{card}]")
+    recorder.report(card, say)
     say(f"    polish: changed {pol['changed']}, t_polish {pol['t_polish']:.2f}"
-        f" s, nw_tier {pol['nw_tier']}, launches {polish_launches} [{card}]")
+        f" s, nw_tier {pol['nw_tier']} [{card}]")
 
     # (c) killed after round 1, resumed from its checkpoint and sidecar
+    real_round = tassemble.assemble_round
     ck = os.path.join(tmp, "c.ckpt")
     calls = {"n": 0}
 
@@ -832,7 +776,7 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
         q_s = time.perf_counter() - t0
         (want,), want_s, waited = oracle(name)
         same_result(f"quality {name}", got, want)
-        rec, det = recovered(q, got.genes)
+        rec, det, _ = quality_bench.recovered(q, got.genes)
         total_rec += rec
         total_det += det
         say(f"[13 assembly] (d) {name}: recovered {rec}/{det}, "
@@ -898,7 +842,7 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
         cli_fasta = f.read()
     return dict(launches={"score": total["score"], "align": total["align"]},
                 parity=parity, parity_oracle=parity_oracle, config2=res,
-                rounds=rounds, cohort=got, cohort_in=(co, co_tax),
+                rounds=recorder.rounds, cohort=got, cohort_in=(co, co_tax),
                 cli_argv=cli_argv, cli_fasta=cli_fasta, tmp=tmp)
 
 
@@ -1228,6 +1172,241 @@ def phase_mesh(dev, ds, index, tables, col_maps, cfg, card, ref):
     say(f"[14 mesh assembly] (e) python -m rambl_tpu_torch.cli assemble "
         f"--mesh 1 (a subprocess, {time.perf_counter() - t0:.1f} s) writes "
         f"phase 13 (e)'s FASTA [{card}]")
+
+
+#: phase 15's cuts of the ladder: config 3 at 1 M of its 10 M reads (phase
+#: 10's dataset and index), config 5 at 500,000 of its 20 M reads on the same
+#: panel; config 2 and config 4 at full size
+LADDER_C3_READS = 1_000_000
+LADDER_C5_READS = 500_000
+#: the config-4 bars (SCALE_r5.json): recovered/detectable with phasing on
+#: and off
+LADDER_C4_BARS = {"on": (36, 40), "off": (22, 40)}
+#: leaves of round 0's cluster stage rerun on CPU tensors in (b)
+LADDER_RERUN_LEAVES = 16
+
+
+def cluster_arrays(out):
+    """cluster_stage's outputs as 9 host arrays in a fixed order."""
+    cons, kact, n_mem, mh = out
+    return [*cons, kact, n_mem, *mh]
+
+
+def capture_cluster_stage(tassemble, cfg, n_pick):
+    """Wrap `assemble.cluster_stage` so that its first call (round 0) keeps
+    CPU copies of its inputs for `n_pick` leaves (spawn and light where
+    present, and the leaves with the most members) and its outputs for
+    them. Returns (the wrapper, the record dict)."""
+    real = tassemble.cluster_stage
+    record = {}
+
+    def wrapper(rec, counts, span_diff, read_count, leaves, tables, cfg_,
+                node2slot=None, mesh=None):
+        out = real(rec, counts, span_diff, read_count, leaves, tables, cfg_,
+                   node2slot, mesh=mesh)
+        if record:
+            return out
+        t0 = time.perf_counter()
+        rc_leaf = read_count.cpu().numpy()[leaves]
+        n_mem = out[2]
+        spawn_at = np.nonzero(rc_leaf > 0)[0]
+        light_at = np.nonzero(rc_leaf == 0)[0]
+        deep = spawn_at[np.argsort(-n_mem[spawn_at], kind="stable")[:4]]
+        n_light = min(n_pick // 2 - 2, light_at.size)
+        chosen = list(dict.fromkeys([
+            *deep, *light_at[np.linspace(0, light_at.size - 1,
+                                         n_light).astype(int)],
+            *spawn_at[np.linspace(0, spawn_at.size - 1,
+                                  n_pick).astype(int)]]))
+        at = np.sort(np.asarray(chosen[:n_pick], np.int64))
+        record.update(
+            leaves=leaves[at], tables=tables, cfg=cfg_, n_leaves=leaves.size,
+            node2slot=node2slot, spawn=int((rc_leaf[at] > 0).sum()),
+            light=int((rc_leaf[at] == 0).sum()),
+            full=int((n_mem[at] >= cfg.max_bin_reads).sum()),
+            max_mem=int(n_mem.max()),
+            want=[a[at] for a in cluster_arrays(out)],
+            inputs=({k: rec[k].cpu() for k in ("query", "ref_col", "bins")},
+                    counts.cpu(), span_diff.cpu(), read_count.cpu()))
+        record["copy_s"] = time.perf_counter() - t0
+        return out
+
+    return wrapper, record
+
+
+def rerun_cluster_stage(tassemble, record):
+    """Round 0's cluster stage on the CPU copies for the recorded leaves;
+    raises unless every output equals the card's. -> seconds taken."""
+    t0 = time.perf_counter()
+    got = tassemble.cluster_stage(*record["inputs"], record["leaves"],
+                                  record["tables"], record["cfg"],
+                                  record["node2slot"])
+    names = ("called", "emit", "n_reads", "kact", "n_mem", "mh.called",
+             "mh.emit", "mh.n_reads", "mh.n_cols")
+    for name, w, g in zip(names, record["want"], cluster_arrays(got)):
+        if w.dtype != g.dtype or not np.array_equal(w, g):
+            raise AssertionError(f"round 0's cluster stage {name}: the card "
+                                 f"differs from the CPU rerun on leaves "
+                                 f"{record['leaves']}")
+    return time.perf_counter() - t0
+
+
+def phase_ladder(dev, ds, ds4, index4, card):
+    """Phase 15: the scale ladder's runners (`rambl_tpu_torch.scripts.
+    run_config2` .. `run_config5`) on the card at cut depth. (a) config 2 at
+    full size on phase 4's dataset; (b) config 3 at LADDER_C3_READS (phase
+    10's dataset and index): slot mode, several leaf blocks, launches every
+    round and none in polish, flat allocation, round 0's cluster stage
+    equal to its CPU rerun; (c) config 5 at LADDER_C5_READS: phase A, then
+    phase B from disk, equal to an uninterrupted run; (d) config 4 at full
+    size, held to its bars."""
+    import os
+    import tempfile
+
+    from rambl_tpu_torch.index.taxonomy import build_taxonomy_tables
+    from rambl_tpu_torch.pipeline import assemble as tassemble
+    from rambl_tpu_torch.scripts import build_scale_caches as caches
+    from rambl_tpu_torch.scripts import (
+        run_config2,
+        run_config3,
+        run_config4,
+        run_config5,
+    )
+    from rambl_tpu_torch.scripts.ladder import RoundRecorder
+
+    def runner_out(*parts):
+        print(*parts, file=sys.stderr, flush=True)
+
+    os.environ["RAMBL_STAGE_TIMING"] = "1"
+    try:
+        # (a) config 2 at full size
+        t0 = time.perf_counter()
+        c2 = run_config2.run(ds=ds, device=dev, out=runner_out)
+        c2["recorder"].check("config 2")
+        say(f"[15 ladder] (a) run_config2 ({ds.reads.shape[0]} reads, "
+            f"max_genes {c2['cfg'].max_genes}): {c2['result'].n_rounds} "
+            f"rounds, {c2['genes']} genes, {c2['full_length']} full-length, "
+            f"recovered>95% {c2['recovered']}/{c2['n_refs']}; wall "
+            f"{c2['wall_s']:.3f} s ({time.perf_counter() - t0:.1f} s with "
+            f"scoring); K1 and K2+K3 launch every round, none in polish; "
+            f"allocation flat [{card}]")
+        c2["recorder"].report(card, say)
+
+        # (b) config 3 at LADDER_C3_READS, with max_genes 2048
+        data3 = caches.ScaleData.of(ds4, index4)
+        if data3.n_reads != LADDER_C3_READS:
+            raise AssertionError(f"phase 10's dataset has {data3.n_reads} "
+                                 f"reads, not {LADDER_C3_READS}")
+        wrapper, record = capture_cluster_stage(
+            tassemble, run_config3.config(LADDER_C3_READS, 2048),
+            LADDER_RERUN_LEAVES)
+        real_stage = tassemble.cluster_stage
+        tassemble.cluster_stage = wrapper
+        try:
+            c3 = run_config3.run(data=data3, max_genes=2048, device=dev,
+                                 out=runner_out)
+        finally:
+            tassemble.cluster_stage = real_stage
+        cfg3, res3 = c3["cfg"], c3["result"]
+        c3["recorder"].check("config 3")
+        n0 = res3.round_stats[0]["n_leaves"]
+        if list(c3["aux"]) != ["slot_counts"]:
+            raise AssertionError("config 3: slot mode did not engage")
+        if n0 <= cfg3.cluster_leaf_block:
+            raise AssertionError(f"config 3: round 0 has {n0} leaves, one "
+                                 "leaf block")
+        if (record["spawn"] == 0 or record["light"] == 0
+                or record["full"] == 0 or record["leaves"].size
+                < LADDER_RERUN_LEAVES):
+            raise AssertionError(f"config 3: the rerun's leaves miss a kind: "
+                                 f"{record['spawn']} spawn, {record['light']}"
+                                 f" light, {record['full']} at max_bin_reads")
+        del c3["aux"]
+        cpu_s = rerun_cluster_stage(tassemble, record)
+        say(f"[15 ladder] (b) run_config3 at {LADDER_C3_READS} of its "
+            f"10,000,000 reads (cut; phase 10's dataset and index), max_genes "
+            f"2048: slot mode, round 0 {n0} leaves in "
+            f"{-(-n0 // cfg3.cluster_leaf_block)} blocks of "
+            f"{cfg3.cluster_leaf_block}; {res3.n_rounds} rounds, converged "
+            f"{res3.converged}; {c3['genes']} genes, {c3['full_length']} "
+            f"full-length; recovered>95% {c3['recovered']}/{c3['detectable']}"
+            f" detectable ({c3['present']} present; no bar at this depth); "
+            f"wall {c3['wall_s']:.3f} s (scored in {c3['score_s']:.1f} s "
+            f"after it); K1 and K2+K3 launch every round, none in polish; "
+            f"allocation flat [{card}]")
+        c3["recorder"].report(card, say)
+        say(f"    round 0's cluster stage rerun on CPU tensors for "
+            f"{record['leaves'].size} of its {record['n_leaves']} leaves "
+            f"({record['spawn']} spawn, {record['light']} light, "
+            f"{record['full']} with members at max_bin_reads "
+            f"{cfg3.max_bin_reads}; most members {record['max_mem']}) in "
+            f"{cpu_s:.1f} s (copies {record['copy_s']:.2f} s, inside the "
+            f"stage): ConsensusOut, kact, n_mem and MinorHap equal the "
+            f"card's bit for bit")
+        del record, c3, res3
+
+        # (c) config 5 at LADDER_C5_READS: A + B from disk == uninterrupted
+        t0 = time.perf_counter()
+        reads5, lens5 = caches.config5_reads(ds4, LADDER_C5_READS)
+        gen_s = time.perf_counter() - t0
+        data5 = caches.ScaleData.of(ds4, index4, reads5, lens5)
+        ckdir = tempfile.mkdtemp(prefix="rambl_smoke_c5_")
+        c5 = run_config5.run(data=data5, device=dev, ckpt_dir=ckdir,
+                             out=runner_out)
+        res5, cfg5 = c5["result"], c5["cfg"]
+        for rec_ in (c5["recorder_a"], c5["recorder_b"]):
+            rec_.check("config 5")
+        if not c5["aux_restored"] or c5["recorder_b"].polish_launches[
+                "score"]:
+            raise AssertionError("config 5: phase B did not restore the aux "
+                                 "evidence, or its polish launched K1")
+        tax5 = build_taxonomy_tables(ds4.tax_parent, ds4.tax_depth,
+                                     ds4.ref_taxon)
+        with RoundRecorder(dev) as whole_rec:
+            t0 = time.perf_counter()
+            whole = tassemble.assemble(reads5, lens5, ds4.ref_seqs,
+                                       ds4.ref_lens, tax5, cfg5,
+                                       shared_index=index4, device=dev)
+            whole_rec.sync()
+            whole_s = time.perf_counter() - t0
+        same_run("config 5 resumed", res5, whole, stats=False)
+        if stats_of(res5)[1:] != stats_of(whole)[1:]:
+            raise AssertionError("config 5: the resumed rounds' stats differ "
+                                 "from the uninterrupted run's")
+        say(f"[15 ladder] (c) run_config5 at {LADDER_C5_READS} of its "
+            f"20,000,000 reads (cut; its chunked generator on phase 10's "
+            f"panel, {gen_s:.1f} s): phase A {c5['phase_a_s']:.3f} s "
+            f"(discovery + checkpoint), phase B {c5['phase_b_s']:.3f} s "
+            f"(resumed from round {c5['header']['round']} on disk, aux "
+            f"RESTORED, polish launched K1 "
+            f"{c5['recorder_b'].polish_launches['score']} times); "
+            f"{res5.n_rounds} rounds, {c5['genes']} genes, "
+            f"{c5['full_length']} full-length, recovered>95% "
+            f"{c5['recovered']}/{c5['detectable']} detectable (no bar at "
+            f"this depth); equal to the uninterrupted run ({whole_s:.3f} s): "
+            f"rounds, stats (timings aside), panel and genes [{card}]")
+        for rec_ in (c5["recorder_a"], c5["recorder_b"]):
+            rec_.report(card, say)
+        del c5, res5, whole, data5, reads5, lens5
+
+        # (d) config 4 at full size, held to its bars
+        c4 = run_config4.run(device=dev, out=runner_out)
+        for mode, (bar_rec, bar_det) in LADDER_C4_BARS.items():
+            got = (c4[mode]["recovered"], c4[mode]["detectable"])
+            if got != (bar_rec, bar_det):
+                raise AssertionError(f"config 4 phasing {mode}: recovered "
+                                     f"{got}, the bar is {bar_rec}/{bar_det}")
+            c4[mode]["recorder"].check(f"config 4 ({mode})")
+        say(f"[15 ladder] (d) run_config4 (8 species x 5 strains, 5 samples "
+            f"of 5,120 reads): with phasing {c4['on']['recovered']}/"
+            f"{c4['on']['detectable']} (mean cont "
+            f"{c4['on']['mean_cont']:.3f}) in {c4['on']['wall_s']:.3f} s, "
+            f"without {c4['off']['recovered']}/{c4['off']['detectable']} "
+            f"(mean cont {c4['off']['mean_cont']:.3f}) in "
+            f"{c4['off']['wall_s']:.3f} s: the bars 36/40 and 22/40 held; "
+            f"K1 and K2+K3 launch every round, none in polish [{card}]")
+    finally:
+        del os.environ["RAMBL_STAGE_TIMING"]
 
 
 def require_equal(what: str, got, ref) -> int:
@@ -2076,6 +2255,9 @@ def main() -> None:
     # ---- 14. the assembly on a mesh -----------------------------------------
     phase_mesh(dev, ds, index, tables, col_maps, cfg, card, asm)
     del asm
+
+    # ---- 15. the scale ladder at cut depth ---------------------------------
+    phase_ladder(dev, ds, ds4, index4, card)
 
     peak = int32_ops_per_s(dev)
     n_path = PAIRS

@@ -5,9 +5,10 @@ scatters its aligned bases into its bin node's (column, base) counts, and its
 aligned span into a +1/-1 interval-difference row. A leaf bin's pileup is the
 sum over the leaf's ancestor chain (reads are shared down the tree, within
 share_depth ranks), the span rows cumsummed after the merge. Slot mode keeps
-accumulators only for the nodes on active leaves' chains. Integer
-`index_add_` is exact in any order, so the reference's row-chunked scan (a
-TPU memory workaround) is not ported.
+accumulators only for the nodes on active leaves' chains. A scatter takes
+the reads in chunks of the reference's `_SCATTER_ROW_CHUNK` rows, each
+added into the accumulators in place; integer `index_add_` is exact in
+any order, so the chunks change no bit.
 """
 
 from __future__ import annotations
@@ -17,11 +18,17 @@ import torch
 from rambl_tpu_torch.index.taxonomy import MAX_DEPTH
 
 
-def _scatter_flat(query: torch.Tensor, ref_col: torch.Tensor,
-                  bins: torch.Tensor, n_nodes: int, ref_len: int):
-    """One scatter pass in flat index space -> (counts (n_nodes*ref_len*4+1,),
-    span (n_nodes*(ref_len+1)+1,)) int32; the last element of each is the
-    inert overflow slot."""
+#: reads a scatter pass takes at once (the reference's row chunk). A pass
+#: holds ~33 B of temporaries a read column (int64 flat indices, int32
+#: columns and bases, masks), so one pass over a 20 M-read retention asked
+#: for ~84 GB and ran the 80 GB card out of memory (config 5, 20 M reads);
+#: 512Ki rows bound them at ~2.2 GB.
+_SCATTER_ROW_CHUNK = 1 << 19
+
+
+def _scatter_rows(query, ref_col, bins, n_nodes: int, ref_len: int,
+                  counts: torch.Tensor, span: torch.Tensor) -> None:
+    """Add one chunk of reads into the flat accumulators, in place."""
     B, L = query.shape
     dev = query.device
     ref_col = ref_col.to(torch.int32)    # retention keeps it as int16
@@ -33,7 +40,6 @@ def _scatter_flat(query: torch.Tensor, ref_col: torch.Tensor,
     n_cnt = n_nodes * ref_len * 4
     flat = ((node.to(torch.int64) * ref_len + col) * 4 + base)
     flat = torch.where(ok, flat, n_cnt).reshape(-1)
-    counts = torch.zeros((n_cnt + 1,), dtype=torch.int32, device=dev)
     counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
 
     # span: per read lo/hi of aligned columns
@@ -46,10 +52,25 @@ def _scatter_flat(query: torch.Tensor, ref_col: torch.Tensor,
                           + torch.clamp(masked_lo, 0, ref_len), sentinel)
     hi_flat = torch.where(has, node1 * (ref_len + 1)
                           + torch.clamp(masked_hi + 1, 0, ref_len), sentinel)
-    span = torch.zeros((sentinel + 1,), dtype=torch.int32, device=dev)
     one = torch.ones((B,), dtype=torch.int32, device=dev)
     span.index_add_(0, lo_flat, one)
     span.index_add_(0, hi_flat, -one)
+
+
+def _scatter_flat(query: torch.Tensor, ref_col: torch.Tensor,
+                  bins: torch.Tensor, n_nodes: int, ref_len: int):
+    """Scatter every read in flat index space, _SCATTER_ROW_CHUNK reads a
+    pass -> (counts (n_nodes*ref_len*4+1,), span (n_nodes*(ref_len+1)+1,))
+    int32; the last element of each is the inert overflow slot."""
+    dev = query.device
+    counts = torch.zeros((n_nodes * ref_len * 4 + 1,), dtype=torch.int32,
+                         device=dev)
+    span = torch.zeros((n_nodes * (ref_len + 1) + 1,), dtype=torch.int32,
+                       device=dev)
+    ck = _SCATTER_ROW_CHUNK
+    for s in range(0, query.shape[0], ck):
+        _scatter_rows(query[s:s + ck], ref_col[s:s + ck], bins[s:s + ck],
+                      n_nodes, ref_len, counts, span)
     return counts, span
 
 

@@ -1,7 +1,8 @@
 """Guards around the port: it stands alone, and never falls back quietly.
 
-(a) `rambl_tpu_torch` streams reads, runs round 0 and the whole assembly
-    and runs its bench with both jax and the JAX package `rambl_tpu` made
+(a) `rambl_tpu_torch` streams reads, runs round 0, the whole assembly and
+    the ladder's config-2 runner, and runs its bench with both jax and the
+    JAX package `rambl_tpu` made
     unimportable, using only its own copies of the host layers; no file of
     the port and no line of `chip_smoke.py` imports `rambl_tpu`;
 (b) `chip_smoke.py` fails in its first phase where there is no CUDA device,
@@ -118,6 +119,26 @@ print("OK", len(got.genes), got.n_rounds)
     assert r.stdout.startswith("OK")
 
 
+def test_ladder_runs_without_jax():
+    """`run_config2.run(device="cpu")` at a tiny size (200 reads, batch
+    128, two rounds) with jax and rambl_tpu unimportable."""
+    code = BLOCK_BOTH + """
+from rambl_tpu_torch.scripts import run_config2
+out = run_config2.run(200, device="cpu", overrides=dict(
+    batch_size=128, max_assembly_iters=2), out=lambda *a: None)
+assert out["genes"] > 0 and out["result"].n_rounds == 2
+assert [r["round"] for r in out["rounds"]] == [0, 1]
+assert out["card"] == "cpu, host clock"
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "rambl_tpu")
+            and sys.modules[m] is not None]
+print("OK", out["genes"], out["recovered"])
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("OK")
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: chip_smoke.py would run")
@@ -189,7 +210,10 @@ def test_port_imports_no_rambl_tpu():
 @pytest.mark.parametrize("entry", ["bench", "bench_sw_variants",
                                    "ablate_prep", "stream_align", "data_mesh",
                                    "assemble_round", "assemble", "polish",
-                                   "assemble_cohort", "cli_assemble"])
+                                   "assemble_cohort", "cli_assemble",
+                                   "build_scale_caches", "quality_bench",
+                                   "run_config2", "run_config3",
+                                   "run_config4", "run_config5"])
 def test_entry_points_need_the_card_by_default(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points would run")
@@ -198,7 +222,16 @@ def test_entry_points_need_the_card_by_default(entry, tmp_path):
     from rambl_tpu_torch.oracle.pipeline import Gene
     from rambl_tpu_torch.parallel.mesh import data_mesh
     from rambl_tpu_torch.pipeline import assemble as asm
-    from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
+    from rambl_tpu_torch.scripts import (
+        ablate_prep,
+        bench_sw_variants,
+        build_scale_caches,
+        quality_bench,
+        run_config2,
+        run_config3,
+        run_config4,
+        run_config5,
+    )
 
     reads, lens = np.zeros((0, 128), np.int8), np.zeros(0, np.int32)
     refs, ref_lens = np.zeros((1, 8), np.int8), np.ones(1, np.int32)
@@ -225,6 +258,12 @@ def test_entry_points_need_the_card_by_default(entry, tmp_path):
             "assemble", "--reads", str(tmp_path / "reads.fastq"),
             "--reference", str(tmp_path / "refs.fasta"),
             "--out", str(tmp_path / "genes.fasta")]),
+        # the ladder: each raises before it simulates or loads anything
+        "build_scale_caches": lambda: build_scale_caches.main(
+            ["--cache-dir", str(tmp_path)]),
+        "quality_bench": quality_bench.run, "run_config2": run_config2.run,
+        "run_config3": run_config3.run, "run_config4": run_config4.run,
+        "run_config5": run_config5.run,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run()

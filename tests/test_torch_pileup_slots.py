@@ -6,8 +6,9 @@ node_slot_pileup, leaf_pileup_slots, polymorphic_mask}` against their
 `rambl_tpu.pipeline.pileup` namesakes on random reads over the toy taxonomy
 of tests/test_scale_paths.py (root -> a, b; a -> leaves 3, 4; b -> leaf 5):
 every node as a leaf, share depths MAX_DEPTH, 3, 1 and 0, int16 and int32
-ref_col, and slot maps that leave chain nodes without a slot. Torch runs on
-CPU tensors; every output is an integer or a bool: no tolerance.
+ref_col, and slot maps that leave chain nodes without a slot; the scatter
+in row chunks of 7, 300 and 512Ki reads. Torch runs on CPU tensors; every
+output is an integer or a bool: no tolerance.
 """
 
 import jax.numpy as jnp
@@ -102,6 +103,41 @@ def test_node_slot_pileup(toy, rc_dtype, drop):
     tax, q, rc, bins = toy
     node2slot, n_slots = _slot_map(tax, bins, drop)
     rc = rc.astype(rc_dtype)
+    ref = jpileup.node_slot_pileup(jnp.asarray(q), jnp.asarray(rc),
+                                   jnp.asarray(bins), jnp.asarray(node2slot),
+                                   n_slots, REF_LEN)
+    got = tpileup.node_slot_pileup(_t(q), _t(rc), _t(bins), _t(node2slot),
+                                   n_slots, REF_LEN)
+    _same(ref[0], got[0], "slot counts")
+    _same(ref[1], got[1], "slot span")
+
+
+@pytest.mark.parametrize("chunk", [7, 300, 1 << 19])
+def test_scatter_in_row_chunks(toy, node_counts, monkeypatch, chunk):
+    """The scatter takes at most `chunk` reads a pass and still equals the
+    JAX node_pileup and node_slot_pileup bit for bit. One pass over every
+    retained read held ~33 B of temporaries a read column and ran the 80 GB
+    card out of memory at config 5's 20 M reads (phase B's slot pileup)."""
+    tax, q, rc, bins = toy
+    monkeypatch.setattr(tpileup, "_SCATTER_ROW_CHUNK", chunk)
+    sizes = []
+    real = torch.Tensor.index_add_
+
+    def spy(self, dim, index, source, **kw):
+        sizes.append(index.numel())
+        return real(self, dim, index, source, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", spy)
+    got = tpileup.node_pileup(_t(q), _t(rc), _t(bins), tax.n_nodes, REF_LEN)
+    B, L = q.shape
+    passes = -(-B // chunk)
+    # each pass: one cell scatter of <= chunk x L, two span scatters
+    assert len(sizes) == 3 * passes
+    assert max(sizes[0::3]) == min(chunk, B) * L
+    ref = node_counts[0]
+    _same(ref[0], got[0], "counts")
+    _same(ref[1], got[1], "span")
+    node2slot, n_slots = _slot_map(tax, bins, (1,))
     ref = jpileup.node_slot_pileup(jnp.asarray(q), jnp.asarray(rc),
                                    jnp.asarray(bins), jnp.asarray(node2slot),
                                    n_slots, REF_LEN)
