@@ -5,7 +5,9 @@ data-parallel read stream with a ring-sharded index on a mesh of four
 virtual ranks of the card (K4, the ring rotation), round 0 of the assembly,
 the whole assembly (reads -> final genes: refinement rounds, polish,
 checkpoint and resume, cohort phasing, the command line), on one card and
-on a mesh, and the scale ladder's runners (configs 2-5) at cut depth.
+on a mesh, the scale ladder's runners (configs 2-5) at cut depth, and the
+entry hooks and the card tools (`graft_entry`, `check_ring_dma`,
+`profile_cluster`, `bench_align_scale`).
 
 Run from the repository root, with no arguments:
 
@@ -108,10 +110,12 @@ code is non-zero and no result line is printed:
    13's one-card result. (a) The parity dataset, dense and slot, also
    equal to the oracle; a run killed after round 1 on the mesh resumes on
    one card to the same genes, and the reverse. (b) Config 2 at full width
-   (max_assembly_iters 5, polish on) with a replicated index, with
+   on the first 250,000 of its 1 M reads (cut; max_assembly_iters 5,
+   polish on) with a replicated index, with
    shard_index and ring_impl="dma" (the cohort preset's mode), and with
    shard_positions added (the deep preset's mode, its rotation K4 too):
-   rounds, their stats (timings aside), panel and genes equal 13 (b)'s; K1,
+   rounds, their stats (timings aside), panel and genes equal one card's
+   run of the same reads; K1,
    K2 + K3 and, in the ring modes, K4 launch in every round, none in
    polish; wall, genes/hour, each round's stages, launches and
    peak memory; the cluster stage on round 0's mesh stream, alone, with
@@ -132,13 +136,30 @@ code is non-zero and no result line is printed:
    rerun on CPU tensors for 16 of its leaves (spawn and light ones, and
    the leaves with the most members, at max_bin_reads); recovery, genes,
    stages and peak memory are printed, with no bar at this depth. (c)
-   Config 5 at 500,000 of its 20 M reads (its chunked generator on phase
+   Config 5 at 250,000 of its 20 M reads (its chunked generator on phase
    10's panel): phase A (discovery + checkpoint in a temporary directory),
    then phase B from disk with the `.aux` sidecar, equal to an
    uninterrupted run of the same config (rounds, stats but timings, panel,
    genes); phase B's polish launches no K1. (d) Config 4 at full size (8
    species x 5 strains, 5 samples of 5,120 reads): with phasing 36/40
-   recovered, without 22/40 (SCALE_r5.json's counts).
+   recovered, without 22/40 (SCALE_r5.json's counts);
+16. the entry hooks and the card tools, on cuda:0. (a)
+   `rambl_tpu_torch.graft_entry.entry()`'s align step on the card equals
+   its rerun on CPU tensors and, for the first 64 reads, the NumPy oracle;
+   K1 must launch; `dryrun_multichip(4)` on 4 virtual ranks (both index
+   modes of the align + pileup step and of the whole assembly agree) under
+   the default ring_impl and with ring_impl="dma", where K4 must launch.
+   (b) `scripts.check_ring_dma.run(n)` at n = 1, 2 and 4: every impl
+   bitwise np.roll (virtual ranks: cross-card ordering is not certified).
+   (c) `scripts.profile_cluster.run` at config 3's block (10 M reads, 512
+   leaves x 4,096 members, 187,667 nodes, ref_len 2,048), in a process of
+   its own: each piece's time, device busy share, longest device
+   operations and host syncs.
+   (d) `scripts.bench_align_scale.run` on phase 10's dataset and index
+   (handed to a process of its own as a plain-array cache) at batch
+   16,384: FULL, A, B and C in ms a batch, and D (the stream loop into 10
+   M retention rows, 16 batches; the median of 3 loops and their spread)
+   in ms a batch with the device's idle share.
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
 main path (for K1 and K2 + K3 the whole assembly of phase 13 (b)), error
@@ -159,6 +180,12 @@ import torch
 
 from rambl_tpu_torch.device import card_line, require_cuda
 from rambl_tpu_torch.scripts import quality_bench
+from rambl_tpu_torch.utils.timing import (
+    busy_ms_of,
+    device_ops,
+    sync_lines,
+    syncs_of,
+)
 
 N_READS = 1_000_000
 SEED = 7
@@ -263,32 +290,6 @@ def blocks_per_sm(variant, L: int, regs: int, props) -> int:
     return min(by_smem, by_threads, by_regs, 32)
 
 
-def busy_ms_of(prof) -> float:
-    """Device busy ms of a profiled run: the union of the device's kernel
-    and copy intervals (streams may overlap, so their times do not add)."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        raise AssertionError("the profiler saw no device work")
-    busy, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
-    return busy / 1e3
-
-
-def device_ops(prof) -> list:
-    """The profiled run's kernels and copies (the events with no host time
-    of their own), most device time first."""
-    return sorted((e for e in prof.key_averages()
-                   if e.self_cpu_time_total == 0
-                   and e.self_device_time_total > 0),
-                  key=lambda e: -e.self_device_time_total)
-
-
 def max_abs_err(got, ref) -> int:
     """Largest |kernel - twin| over a set of integer outputs."""
     err = 0
@@ -337,32 +338,6 @@ def stream_syncs(run_stream, n_batches: int):
     turns = n_batches - 2
     return (sum(at.values()) / turns,
             {k: v / turns for k, v in at.items()})
-
-
-def sync_lines(caught):
-    """{source line: count} of the host-sync warnings among `caught`."""
-    import collections
-
-    return collections.Counter(
-        f"{w.filename.rsplit('rambl_tpu_torch/', 1)[-1]}:{w.lineno}"
-        for w in caught if "synchroniz" in str(w.message))
-
-
-def syncs_of(run) -> tuple:
-    """(result of run(), {source line: host syncs}) as
-    torch.cuda.set_sync_debug_mode("warn") reports them over the whole
-    call."""
-    import warnings
-
-    torch.cuda.synchronize()
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            out = run()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return out, sync_lines(caught)
 
 
 def gene_fields(genes) -> list:
@@ -841,7 +816,7 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     with open(gene_fa) as f:
         cli_fasta = f.read()
     return dict(launches={"score": total["score"], "align": total["align"]},
-                parity=parity, parity_oracle=parity_oracle, config2=res,
+                parity=parity, parity_oracle=parity_oracle,
                 rounds=recorder.rounds, cohort=got, cohort_in=(co, co_tax),
                 cli_argv=cli_argv, cli_fasta=cli_fasta, tmp=tmp)
 
@@ -863,6 +838,9 @@ def run_cli(argv):
 
 #: phase 14's mesh: virtual ranks of cuda:0, and config 2's three modes
 MESH_RANKS = 4
+#: phase 14 (b)'s reads of config 2 (cut from 1 M when phase 16 came: the
+#: run must stay inside its time; phase 13 (b) runs all of them on one card)
+MESH_C2_READS = 250_000
 MESH_MODES = {
     "replicated": {},
     "ring dma": dict(shard_index=True, ring_impl="dma"),
@@ -897,8 +875,9 @@ def same_run(what, got, want, stats=True):
 
 def phase_mesh(dev, ds, index, tables, col_maps, cfg, card, ref):
     """Phase 14: the assembly on a mesh of MESH_RANKS virtual ranks of the
-    card, each of (a)-(e) held to phase 13's single-device results `ref`
-    (a dict from `phase_assembly`)."""
+    card, each of (a)-(e) held to a single-device result: phase 13's `ref`
+    (a dict from `phase_assembly`), and for (b) one card's run of the same
+    MESH_C2_READS reads."""
     import dataclasses
     import os
 
@@ -980,9 +959,14 @@ def phase_mesh(dev, ds, index, tables, col_maps, cfg, card, ref):
         f"on the mesh and resumed on one card, and the reverse, from the "
         f"checkpoint and its sidecar: the one-card genes bit for bit")
 
-    # (b) config 2 at full width, three modes, round by round
-    want = ref["config2"]
-    args = (ds.reads, ds.read_lens, ds.ref_seqs, ds.ref_lens, tables)
+    # (b) config 2 at full width on its first MESH_C2_READS reads, three
+    # modes, round by round, each held to one card's run of those reads
+    n_b = MESH_C2_READS
+    args = (ds.reads[:n_b], ds.read_lens[:n_b], ds.ref_seqs, ds.ref_lens,
+            tables)
+    t0 = time.perf_counter()
+    want = tassemble.assemble(*args, cfg, device=dev)
+    one_s = time.perf_counter() - t0
     for mode, extra in MESH_MODES.items():
         mcfg = dataclasses.replace(cfg, **extra)
         rounds = []
@@ -1024,11 +1008,12 @@ def phase_mesh(dev, ds, index, tables, col_maps, cfg, card, ref):
             if n["score"] <= 0 or n["align"] <= 0 or (ring and n["ring"] <= 0):
                 raise AssertionError(f"{mode}: round {i} launched {n}")
         full = res.full_length(mcfg)
-        say(f"[14 mesh assembly] (b) config 2 on the mesh, {mode} "
-            f"({ds.reads.shape[0]} reads, max_assembly_iters "
-            f"{mcfg.max_assembly_iters}, polish on): {res.n_rounds} rounds, "
-            f"{len(res.genes)} genes, {len(full)} full-length, equal to "
-            f"phase 13 (b) (rounds, stats, panel, genes); wall {e2e_s:.3f} s"
+        say(f"[14 mesh assembly] (b) config 2 on the mesh, {mode} (the "
+            f"first {n_b} of its {ds.reads.shape[0]} reads (cut), "
+            f"max_assembly_iters {mcfg.max_assembly_iters}, polish on): "
+            f"{res.n_rounds} rounds, {len(res.genes)} genes, {len(full)} "
+            f"full-length, equal to one card's run of those reads "
+            f"({one_s:.3f} s) (rounds, stats, panel, genes); wall {e2e_s:.3f} s"
             f" (host clock, index and col maps built inside) = "
             f"{len(full) / (e2e_s / 3600.0):.0f} genes/hour; polish "
             f"launched nothing [{card}]")
@@ -1175,10 +1160,11 @@ def phase_mesh(dev, ds, index, tables, col_maps, cfg, card, ref):
 
 
 #: phase 15's cuts of the ladder: config 3 at 1 M of its 10 M reads (phase
-#: 10's dataset and index), config 5 at 500,000 of its 20 M reads on the same
-#: panel; config 2 and config 4 at full size
+#: 10's dataset and index), config 5 at 250,000 of its 20 M reads on the
+#: same panel (500,000 before phase 16 came: the run must stay inside its
+#: time); config 2 and config 4 at full size
 LADDER_C3_READS = 1_000_000
-LADDER_C5_READS = 500_000
+LADDER_C5_READS = 250_000
 #: the config-4 bars (SCALE_r5.json): recovered/detectable with phasing on
 #: and off
 LADDER_C4_BARS = {"on": (36, 40), "off": (22, 40)}
@@ -1407,6 +1393,158 @@ def phase_ladder(dev, ds, ds4, index4, card):
             f"K1 and K2+K3 launch every round, none in polish [{card}]")
     finally:
         del os.environ["RAMBL_STAGE_TIMING"]
+
+
+#: phase 16 (c): config 3's cluster block, at the reference script's reads
+TOOLS_CLUSTER = dict(n_reads=10_000_000, n_leaves=512)
+#: phase 16 (d): the align batch of config 3 and the production retention
+TOOLS_ALIGN = dict(batch=16384, rows=10_000_000, nb=16)
+
+
+def phase_tools(dev, ds4, index4, card):
+    """Phase 16: the entry hooks and the card tools. (a) `graft_entry.
+    entry()`'s align step on the card equals its CPU rerun and, for the
+    first 64 reads, the NumPy oracle, with K1 launching;
+    `dryrun_multichip(4)` on 4 virtual ranks under the default ring_impl
+    and with "dma" (K4 must launch). (b) `scripts.check_ring_dma.run(n)` at
+    n = 1, 2, 4 with every impl. (c) `scripts.profile_cluster.run` at
+    config 3's block and (d) `scripts.bench_align_scale.run` on phase 10's
+    dataset and index, each in a process of its own."""
+    import os
+
+    from rambl_tpu_torch import graft_entry
+    from rambl_tpu_torch.ops import sw_cuda
+    from rambl_tpu_torch.oracle.align import align_reads
+    from rambl_tpu_torch.parallel import ring_dma
+    from rambl_tpu_torch.scripts import bench_align_scale, check_ring_dma
+
+    t_phase = time.perf_counter()
+    # the earlier phases' cached blocks go back to the card: (c)'s process
+    # and (d) need ~25 GB of their own
+    torch.cuda.empty_cache()
+    # (a) the entry hooks
+    fn, args = graft_entry.entry()
+    if args[0].device != dev:
+        raise AssertionError(f"entry() put its example on {args[0].device}")
+    torch.cuda.synchronize()
+    sw_cuda.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(sw_cuda.LAUNCHES)
+    if launches["score"] <= 0:
+        raise AssertionError(f"entry()'s step launched {launches}: K1 must "
+                             "launch")
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    for name in got._fields:
+        if not torch.equal(getattr(got, name).cpu(), getattr(want, name)):
+            raise AssertionError(f"entry(): {name} on the card differs from "
+                                 "its CPU rerun")
+    cfg, ds, index, _ = graft_entry._toy_problem()
+    n_or = 64
+    orc = align_reads(ds.reads[:n_or], ds.read_lens[:n_or], ds.ref_seqs,
+                      index, cfg)
+    for name in got._fields:
+        g = getattr(got, name)[:n_or].cpu().numpy().astype(np.int64)
+        if not np.array_equal(getattr(orc, name).astype(np.int64), g):
+            raise AssertionError(f"entry(): {name} of the first {n_or} reads "
+                                 "differs from the NumPy oracle")
+    say(f"[16 tools] (a) entry(): {args[0].shape[0]} reads on the card, "
+        f"launches {launches}; AlignRecords equal the CPU rerun, the first "
+        f"{n_or} reads the NumPy oracle")
+    for impl in ("ppermute", "dma"):
+        sw_cuda.reset_launches()
+        ring_dma.reset_launches()
+        t0 = time.perf_counter()
+        graft_entry.dryrun_multichip(4, ring_impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k = {**sw_cuda.LAUNCHES, **ring_dma.LAUNCHES}
+        if k["score"] <= 0 or (impl == "dma" and k["ring"] <= 0):
+            raise AssertionError(f"dryrun_multichip(4, ring_impl={impl!r}) "
+                                 f"launched {k}")
+        say(f"    dryrun_multichip(4) on 4 virtual ranks, ring_impl={impl}: "
+            f"both index modes agree (step and assembly) in {wall:.2f} s; "
+            f"launches {k}")
+
+    # (b) the ring rotation under every impl
+    for n in (1, 2, 4):
+        ring_dma.reset_launches()
+        done = check_ring_dma.run(n, out=lambda *a: None)
+        if list(done) != list(ring_dma.IMPLS):
+            raise AssertionError(f"check_ring_dma.run({n}) ran {list(done)}")
+        ranks = (f"{n} cards" if 1 < n <= torch.cuda.device_count() else
+                 f"{n} virtual rank(s) of {dev}: cross-card ordering is not "
+                 "certified")
+        say(f"[16 tools] (b) check_ring_dma.run({n}): {', '.join(done)} "
+            f"bitwise np.roll; K4 launches {ring_dma.LAUNCHES['ring']} "
+            f"({ranks})")
+
+    # (c) and (d) run in processes of their own: run here, late in this
+    # script, torch.profiler lost device records (consensus 1.4% busy
+    # against 99.9% alone; 69 of (d)'s 6,800 kernels), and
+    # `utils.timing.profiled` raises on a session that lost them
+    prof = run_apart(
+        "from rambl_tpu_torch.scripts import profile_cluster; "
+        f"r = profile_cluster.run(**{TOOLS_CLUSTER!r}, trials=1, "
+        "out=lambda *a: None)")
+    say(f"[16 tools] (c) profile_cluster: "
+        + " ".join(f"{k}={v}" for k, v in prof["shapes"].items())
+        + f"; sum of the pieces {prof['sum_ms']:.3f} ms a block [{card}]")
+    for name, r in prof["pieces"].items():
+        say(f"    {name:14s} {r['ms']:10.3f} ms, device busy "
+            f"{100 * r['busy_share']:.1f}%, host syncs {r['syncs']} "
+            f"{r['sync_lines']}; longest: "
+            + "; ".join(f"{ms:.3f} ms x{calls} {key[:60]}"
+                        for ms, calls, key in r["top"][:3]))
+    for name, why in prof["absent"].items():
+        say(f"    {name:14s} absent: {why}")
+
+    # (d) the round-0 align batch at config 3's index, on phase 10's data
+    # (handed over as a plain-array cache, removed after)
+    from rambl_tpu_torch.scripts import build_scale_caches as caches
+
+    os.makedirs(caches.cache_dir(), exist_ok=True)
+    path = os.path.join(caches.cache_dir(), "phase16_config3.npz")
+    caches.save_cache(path, caches.ScaleData.of(ds4, index4))
+    try:
+        res = run_apart(
+            "from rambl_tpu_torch.scripts import bench_align_scale, "
+            "build_scale_caches; "
+            f"d = build_scale_caches.load_cache({path!r}); "
+            f"r = bench_align_scale.run(**{TOOLS_ALIGN!r}, ds=d, "
+            "index=d.index, out=lambda *a: None)")
+    finally:
+        os.remove(path)
+    say(f"[16 tools] (d) bench_align_scale on phase 10's "
+        f"{ds4.reads.shape[0]} reads, {res['entries']} entries, batch "
+        f"{res['batch']}: "
+        + ", ".join(f"{k} {res[k]['ms']:.3f} ms (device busy "
+                    f"{res[k]['device_ms']:.3f} ms)"
+                    for k in bench_align_scale.PREFIXES)
+        + f"; D {res['D']['ms']:.3f} ms a batch (spread "
+        f"{res['D']['spread']:.1f}% over {bench_align_scale.TRIALS} loops) "
+        f"over {res['nb']} batches into {res['rows']} rows, device busy "
+        f"{res['D']['device_ms']:.3f} ms, idle "
+        f"{100 * res['D']['idle_share']:.1f}% [{card}]")
+    say(f"    phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_apart(code: str) -> dict:
+    """`code`, which sets `r` to a dict, in a Python process of its own
+    from the repository root -> that dict (through JSON); raises when the
+    process exits with another code than 0."""
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import json; {code}; print(json.dumps(r))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"`{code[:80]}...` exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def require_equal(what: str, got, ref) -> int:
@@ -2258,6 +2396,9 @@ def main() -> None:
 
     # ---- 15. the scale ladder at cut depth ---------------------------------
     phase_ladder(dev, ds, ds4, index4, card)
+
+    # ---- 16. the entry hooks and the card tools ---------------------------
+    phase_tools(dev, ds4, index4, card)
 
     peak = int32_ops_per_s(dev)
     n_path = PAIRS

@@ -35,7 +35,12 @@ Layout mirrors `rambl_tpu`:
   (`csrc/ring.cu`) with the plain `copy_` version, and the round's mesh
   steps (stream, merges, slot pileup, leaf-sharded clustering);
 - `bench`, `scripts.bench_sw_variants`, `scripts.ablate_prep`: the bench
-  entry points.
+  entry points; `graft_entry`: the entry hooks (`entry`,
+  `dryrun_multichip`); `scripts.profile_cluster`,
+  `scripts.bench_align_scale`, `scripts.check_ring_dma`: the card tools.
+
+Each package exports the names its reference counterpart exports
+(`PipelineConfig`, `io.read_fasta`, `ops.sw_score`, ...).
 
 Entry points run on the first CUDA card unless the caller passes a device
 ("cpu" for the plain PyTorch path); nothing falls back from the card to the
@@ -43,3 +48,9 @@ CPU on its own (`device.require_cuda`).
 """
 
 __version__ = "0.3.0"
+
+from rambl_tpu_torch.config import (  # noqa: F401
+    PRESETS,
+    PipelineConfig,
+    ScoringParams,
+)

@@ -1,7 +1,7 @@
 """Full align step (oracle): seed -> candidates -> score -> best hit -> traceback.
 
-The port's copy of `align_reads` from `rambl_tpu/oracle/align.py`, a batched
-two-pass computation:
+The port's copy of `rambl_tpu/oracle/align.py` (`align_reads`, a batched
+two-pass computation, and `mapping_quality`):
 
   pass 1 (score): banded SW over all (read x strand x candidate) pairs;
   pass 2 (trace): rerun DP with direction bits only for each read's best pair,
@@ -42,6 +42,18 @@ class AlignmentResult:
     @property
     def aligned(self) -> np.ndarray:
         return self.ref >= 0
+
+
+def mapping_quality(res: "AlignmentResult") -> np.ndarray:
+    """MAPQ-equivalent margin, bit-identical to pipeline.align.mapping_quality
+    (tests/test_ops_parity.py): best score minus best valid other-reference
+    pair score; 0 for unaligned or cross-ref multi-mapped reads."""
+    second = np.max(
+        np.where(res.pair_valid & (res.pair_ref != res.ref[:, None]),
+                 res.pair_score, 0),
+        axis=1,
+    )
+    return np.where(res.aligned, res.score - second, 0).astype(np.int32)
 
 
 def align_reads(

@@ -1,6 +1,6 @@
 """Banded/windowed affine-gap Smith-Waterman, NumPy specification: the port's
-copy of `sw_batch` and `traceback_batch` from `rambl_tpu/oracle/sw.py`, which
-the kernels are held against on the card.
+copy of `rambl_tpu/oracle/sw.py`, which the kernels are held against on the
+card.
 
     H[i,j] = max(0, H[i-1,j-1] + s(q_i, w_j), E[i,j], F[i,j])
     E[i,j] = max(H[i,j-1] - go - ge, E[i,j-1] - ge)   # gap in query (deletion)
@@ -16,7 +16,8 @@ Deterministic rules locked here (every kernel must match exactly):
 - traceback emits, per query position i, the window column aligned to it
   (-1 when clipped or inserted).
 
-`sw_batch` is an anti-diagonal wavefront vectorized over the pair batch.
+Two implementations: `sw_scalar` (loops, obviously correct, tests only) and
+`sw_batch` (an anti-diagonal wavefront vectorized over the pair batch).
 """
 
 from __future__ import annotations
@@ -31,6 +32,82 @@ CH_ZERO, CH_DIAG, CH_E, CH_F = 0, 1, 2, 3
 
 def _sub_score(a: np.ndarray, b: np.ndarray, sc: ScoringParams) -> np.ndarray:
     return np.where((a == b) & (a < 4) & (b < 4), sc.match, sc.mismatch)
+
+
+def sw_scalar(q: np.ndarray, w: np.ndarray, sc: ScoringParams):
+    """Reference scalar DP. Returns (score, i_end, j_end, Hch, Eopen, Fopen).
+
+    q: (L,) int8 query codes; w: (W,) int8 window codes. DP arrays are 1-based
+    with a zero border; i_end/j_end are 1-based cell coordinates (0 = no
+    alignment). Hch/Eopen/Fopen have shape (L+1, W+1).
+    """
+    L, W = len(q), len(w)
+    NEG = sc.neg_inf
+    H = np.zeros((L + 1, W + 1), dtype=np.int32)
+    E = np.full((L + 1, W + 1), NEG, dtype=np.int32)
+    F = np.full((L + 1, W + 1), NEG, dtype=np.int32)
+    Hch = np.zeros((L + 1, W + 1), dtype=np.int8)
+    Eopen = np.zeros((L + 1, W + 1), dtype=np.int8)
+    Fopen = np.zeros((L + 1, W + 1), dtype=np.int8)
+    go, ge = sc.gap_open, sc.gap_extend
+    for i in range(1, L + 1):
+        for j in range(1, W + 1):
+            e_open = H[i, j - 1] - go - ge
+            e_ext = E[i, j - 1] - ge
+            E[i, j] = max(e_open, e_ext)
+            Eopen[i, j] = 1 if e_open >= e_ext else 0
+            f_open = H[i - 1, j] - go - ge
+            f_ext = F[i - 1, j] - ge
+            F[i, j] = max(f_open, f_ext)
+            Fopen[i, j] = 1 if f_open >= f_ext else 0
+            diag = H[i - 1, j - 1] + int(_sub_score(q[i - 1], w[j - 1], sc))
+            h = max(0, diag, E[i, j], F[i, j])
+            H[i, j] = h
+            if h == 0:
+                Hch[i, j] = CH_ZERO
+            elif h == diag:
+                Hch[i, j] = CH_DIAG
+            elif h == E[i, j]:
+                Hch[i, j] = CH_E
+            else:
+                Hch[i, j] = CH_F
+    # best cell: max H, tie -> smallest i then smallest j
+    flat = np.argmax(H.ravel() * 32768 - (np.arange(H.size, dtype=np.int64)))
+    i_end, j_end = divmod(int(flat), W + 1)
+    score = int(H[i_end, j_end])
+    if score <= 0:
+        i_end = j_end = 0
+    return score, i_end, j_end, Hch, Eopen, Fopen
+
+
+def traceback_scalar(Hch, Eopen, Fopen, i_end, j_end, L) -> np.ndarray:
+    """Scalar traceback -> ref_col (L,) int32: window col per query pos, -1 if
+    clipped/inserted. Follows the locked preference rules."""
+    ref_col = np.full((L,), -1, dtype=np.int32)
+    i, j = int(i_end), int(j_end)
+    state = "M"
+    while i > 0 and j > 0:
+        if state == "M":
+            c = Hch[i, j]
+            if c == CH_ZERO:
+                break
+            if c == CH_DIAG:
+                ref_col[i - 1] = j - 1
+                i -= 1
+                j -= 1
+            elif c == CH_E:
+                state = "E"
+            else:
+                state = "F"
+        elif state == "E":  # deletion: window col j-1 consumed, no query base
+            op = Eopen[i, j]
+            j -= 1
+            state = "M" if op else "E"
+        else:  # F: insertion: query base i-1 unaligned
+            op = Fopen[i, j]
+            i -= 1
+            state = "M" if op else "F"
+    return ref_col
 
 
 def sw_batch(q: np.ndarray, w: np.ndarray, sc: ScoringParams, want_dirs: bool = True):
@@ -136,7 +213,7 @@ def traceback_batch(dir_pack: np.ndarray, i_end: np.ndarray, j_end: np.ndarray,
     """Vectorized traceback over a batch.
 
     dir_pack: (B, L+1, W+1) uint8 as produced by sw_batch. Returns ref_col
-    (B, L) int32.
+    (B, L) int32. Equivalent to traceback_scalar per row.
     """
     B = dir_pack.shape[0]
     W = dir_pack.shape[2] - 1

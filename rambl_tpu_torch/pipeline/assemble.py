@@ -51,9 +51,9 @@ from rambl_tpu_torch.index.builder import build_seed_index
 from rambl_tpu_torch.oracle.pipeline import Gene
 from rambl_tpu_torch.pipeline.binning import bin_batch
 from rambl_tpu_torch.pipeline.cluster import (
-    _BIG,
     bin_sort,
     dp_means_leaves,
+    feature_columns,
     leaf_features_dense,
     member_table_ranges,
 )
@@ -261,35 +261,53 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
         return (host_reads[sl].to(device, non_blocking=True),
                 host_lens[sl].to(device, non_blocking=True))
 
-    # retention buffers, filled in place; projected columns are < ref_len,
-    # so int16 holds them exactly when ref_len <= 32767
     BT = nb * cfg.batch_size
-    L = padded.shape[1]
-    compact = ref_len <= 32767
-    bufs = {
-        "query": torch.zeros((BT, L), dtype=torch.int8, device=device),
-        "ref_col": torch.zeros((BT, L), dtype=torch.int16 if compact else i32,
-                               device=device),
-        "bins": torch.zeros((BT,), dtype=i32, device=device),
-        "score": torch.zeros((BT,), dtype=i32, device=device),
-        "ref": torch.zeros((BT,), dtype=i32, device=device),
-        "strand": torch.zeros((BT,), dtype=torch.int8, device=device),
-    }
-    nxt = _put(0) if nb else None
-    for i in range(nb):
-        cur, nxt = nxt, (_put(i + 1) if i + 1 < nb else None)
-        outs = _align_bin_batch(cur[0], cur[1], table, st, cfg)
-        q, rc, b = outs[0], outs[1], outs[2]
-        if dense:
-            _pileup_accum(q, rc, b, counts, span_diff, read_count, n_nodes,
-                          ref_len)
-        else:
-            _read_count_accum(b, read_count, n_nodes)
-        s0 = i * cfg.batch_size
-        for k, v in zip(RETAINED, outs):
-            bufs[k][s0:s0 + cfg.batch_size] = v
+    bufs = retention_buffers(BT, padded.shape[1], ref_len, device)
+    stream_batches(_put, nb, table, st, cfg, bufs, read_count, counts,
+                   span_diff)
     merged = {k: (v if BT == B else v[:B]) for k, v in bufs.items()}
     return merged, counts, span_diff, read_count
+
+
+def retention_buffers(rows: int, L: int, ref_len: int, device) -> dict:
+    """The stream's retention buffers of `rows` reads, filled in place;
+    projected columns are < ref_len, so int16 holds them exactly when
+    ref_len <= 32767."""
+    i32 = torch.int32
+    compact = ref_len <= 32767
+    return {
+        "query": torch.zeros((rows, L), dtype=torch.int8, device=device),
+        "ref_col": torch.zeros((rows, L), dtype=torch.int16 if compact
+                               else i32, device=device),
+        "bins": torch.zeros((rows,), dtype=i32, device=device),
+        "score": torch.zeros((rows,), dtype=i32, device=device),
+        "ref": torch.zeros((rows,), dtype=i32, device=device),
+        "strand": torch.zeros((rows,), dtype=torch.int8, device=device),
+    }
+
+
+def stream_batches(put, nb: int, table: SeedTable, st: StreamTables,
+                   cfg: PipelineConfig, bufs: dict, read_count,
+                   counts=None, span_diff=None) -> None:
+    """The single-device stream's loop: batch i (`put(i)` copies it to the
+    device, one batch ahead of the one being aligned) through the align +
+    bin step, its outputs into rows [i * batch, (i + 1) * batch) of `bufs`,
+    its bins into `read_count` and, with `counts`, its pileup into the
+    dense accumulators, all in place."""
+    n_nodes = read_count.shape[0]
+    bs = cfg.batch_size
+    nxt = put(0) if nb else None
+    for i in range(nb):
+        cur, nxt = nxt, (put(i + 1) if i + 1 < nb else None)
+        outs = _align_bin_batch(cur[0], cur[1], table, st, cfg)
+        q, rc, b = outs[0], outs[1], outs[2]
+        if counts is not None:
+            _pileup_accum(q, rc, b, counts, span_diff, read_count, n_nodes,
+                          st.ref_seqs.shape[1])
+        else:
+            _read_count_accum(b, read_count, n_nodes)
+        for k, v in zip(RETAINED, outs):
+            bufs[k][i * bs:(i + 1) * bs] = v
 
 
 def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
@@ -472,13 +490,7 @@ def cluster_round0_members(qm, rcm, bins_m, mvalid, counts, span_diff,
         cfg.poly_minor_frac_num, cfg.poly_minor_frac_den, ref_len,
     )
     if spawn:
-        cols = torch.arange(ref_len, dtype=torch.int32, device=pm.device)
-        key = torch.where(pm, cols[None, :], _BIG)
-        pol_cols = torch.topk(key, cfg.max_poly_cols, dim=1, largest=False,
-                              sorted=True).values            # ascending
-        pol_valid = pol_cols < _BIG
-        pol_cols = torch.where(pol_valid, pol_cols, 0)
-
+        pol_cols, pol_valid = feature_columns(pm, cfg.max_poly_cols)
         feat = leaf_features_dense(qm, rcm, mvalid, pol_cols, pol_valid,
                                    ref_len)
         can_seed = (bins_m == leaves[:, None]) & mvalid  # leaf-exclusive only

@@ -93,6 +93,18 @@ def member_table_ranges(order: torch.Tensor, node_start: torch.Tensor,
     return torch.where(ok, sortedk, 0), ok
 
 
+def feature_columns(poly_mask: torch.Tensor, max_poly_cols: int):
+    """The first max_poly_cols polymorphic columns of each leaf, ascending:
+    (pol_cols (NL, P) int32, 0 where not valid; pol_valid (NL, P) bool)."""
+    ref_len = poly_mask.shape[1]
+    cols = torch.arange(ref_len, dtype=torch.int32, device=poly_mask.device)
+    key = torch.where(poly_mask, cols[None, :], _BIG)
+    pol_cols = torch.topk(key, max_poly_cols, dim=1, largest=False,
+                          sorted=True).values
+    pol_valid = pol_cols < _BIG
+    return torch.where(pol_valid, pol_cols, 0), pol_valid
+
+
 def leaf_features_dense(qm: torch.Tensor, rcm: torch.Tensor,
                         member_valid: torch.Tensor, pol_cols: torch.Tensor,
                         pol_valid: torch.Tensor,

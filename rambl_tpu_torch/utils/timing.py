@@ -8,6 +8,12 @@ one such trial, and fails on a machine without a card rather than timing the
 CPU. A kernel shorter than the host's time to launch it needs more: its
 launches go into one CUDA graph, timed by the same events (`graph_ms`), or
 torch.profiler reads its device time (`kernel_ms`).
+
+A profiled run's device busy time (`busy_ms_of`) and its longest device
+operations (`device_ops`), both of one call (`profiled`, which reruns a
+call whose device records were lost: `kernel_records`), and the host
+syncs of a call as `torch.cuda.set_sync_debug_mode("warn")` reports them
+(`syncs_of`) serve `chip_smoke.py` and the profiling scripts.
 """
 
 from __future__ import annotations
@@ -120,3 +126,102 @@ def graph_ms(fn, *args, iters: int = 50, trials: int = 3) -> list[float]:
         torch.cuda.synchronize(dev)
         out.append(start.elapsed_time(end) / iters)
     return out
+
+
+def busy_ms_of(prof) -> float:
+    """Device busy ms of a profiled run: the union of the device's kernel
+    and copy intervals (streams may overlap, so their times do not add)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no device work")
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def device_ops(prof) -> list:
+    """The profiled run's kernels and copies (the events with no host time
+    of their own), most device time first."""
+    return sorted((e for e in prof.key_averages()
+                   if e.self_cpu_time_total == 0
+                   and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+
+
+#: the host calls that launch one kernel each, as torch.profiler names them
+LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                          "cuLaunchKernelEx"})
+
+
+def kernel_records(prof) -> tuple[int, int]:
+    """(kernel launches, kernels run) of a profiled run: the launch calls
+    recorded on the host and the kernels recorded on the device (its
+    events less its copies and sets)."""
+    from torch.autograd import DeviceType
+
+    launched = ran = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ran += not e.name.startswith(("Memcpy", "Memset"))
+        elif e.name in LAUNCH_CALLS:
+            launched += 1
+    return launched, ran
+
+
+def profiled(work, attempts: int = 3) -> tuple:
+    """(device busy ms, device operations) of one synchronized run of
+    work() under torch.profiler (`busy_ms_of`, `device_ops`).
+
+    A run that recorded fewer kernels than it launched (`kernel_records`)
+    by more than 2 and more than 1% of its launches lost device records,
+    and its busy time would read low: it is run again, and after
+    `attempts` such runs this raises. (Whole runs on an H100 left 1 of
+    163 and 2 of 9,464 launch calls without a kernel record; a run that
+    lost records kept a few kernels of each piece.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        launched, ran = kernel_records(prof)
+        if launched - ran <= max(2, launched // 100):
+            return busy_ms_of(prof), device_ops(prof)
+    raise AssertionError(
+        f"torch.profiler lost device records in {attempts} runs: the last "
+        f"recorded {ran} kernels of {launched} launches")
+
+
+def sync_lines(caught):
+    """{source line: count} of the host-sync warnings among `caught`."""
+    import collections
+
+    return collections.Counter(
+        f"{w.filename.rsplit('rambl_tpu_torch/', 1)[-1]}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message))
+
+
+def syncs_of(run) -> tuple:
+    """(result of run(), {source line: host syncs}) as
+    torch.cuda.set_sync_debug_mode("warn") reports them over the whole
+    call."""
+    import warnings
+
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sync_lines(caught)

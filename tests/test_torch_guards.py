@@ -50,6 +50,11 @@ from rambl_tpu_torch.ops import sw_variants
 from rambl_tpu_torch.scripts import ablate_prep, bench_sw_variants
 from rambl_tpu_torch.ops import sw_cuda
 from rambl_tpu_torch.utils import timing, sw_cases
+from rambl_tpu_torch import graft_entry, io, oracle, utils
+from rambl_tpu_torch.scripts import (bench_align_scale, check_ring_dma,
+    profile_cluster)
+assert rambl_tpu_torch.PipelineConfig is PipelineConfig and io.read_fasta
+check_ring_dma.run(2, ("ppermute",), device="cpu", out=lambda *a: None)
 ds = simulate_dataset(n_species=2, refs_per_species=2, n_reads=40, seed=3)
 cfg = PipelineConfig(batch_size=32, sw_rows=104)
 idx = build_seed_index(ds.ref_seqs, ds.ref_lens, k=cfg.k)
@@ -164,7 +169,7 @@ def test_card_tests_skip_here_with_reason():
               "no:cacheprovider", "tests/test_torch_kernels_cuda.py"],
              env_extra={"PYTHONPATH": REPO})
     assert r.returncode == 0, r.stdout[-3000:]
-    assert "164 skipped" in r.stdout and "passed" not in r.stdout
+    assert "166 skipped" in r.stdout and "passed" not in r.stdout
     assert "needs an NVIDIA GPU with CUDA" in r.stdout
 
 
@@ -213,19 +218,25 @@ def test_port_imports_no_rambl_tpu():
                                    "assemble_cohort", "cli_assemble",
                                    "build_scale_caches", "quality_bench",
                                    "run_config2", "run_config3",
-                                   "run_config4", "run_config5"])
+                                   "run_config4", "run_config5",
+                                   "graft_entry", "dryrun_multichip",
+                                   "profile_cluster", "bench_align_scale",
+                                   "check_ring_dma"])
 def test_entry_points_need_the_card_by_default(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points would run")
-    from rambl_tpu_torch import bench, cli
+    from rambl_tpu_torch import bench, cli, graft_entry
     from rambl_tpu_torch.config import PipelineConfig
     from rambl_tpu_torch.oracle.pipeline import Gene
     from rambl_tpu_torch.parallel.mesh import data_mesh
     from rambl_tpu_torch.pipeline import assemble as asm
     from rambl_tpu_torch.scripts import (
         ablate_prep,
+        bench_align_scale,
         bench_sw_variants,
         build_scale_caches,
+        check_ring_dma,
+        profile_cluster,
         quality_bench,
         run_config2,
         run_config3,
@@ -264,6 +275,13 @@ def test_entry_points_need_the_card_by_default(entry, tmp_path):
         "quality_bench": quality_bench.run, "run_config2": run_config2.run,
         "run_config3": run_config3.run, "run_config4": run_config4.run,
         "run_config5": run_config5.run,
+        # the entry hooks and the card tools: each raises before it builds
+        # a toy problem, inputs or scale data
+        "graft_entry": graft_entry.entry,
+        "dryrun_multichip": lambda: graft_entry.dryrun_multichip(2),
+        "profile_cluster": profile_cluster.run,
+        "bench_align_scale": bench_align_scale.run,
+        "check_ring_dma": check_ring_dma.run,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run()

@@ -208,6 +208,78 @@ def test_pack_and_errors():
     assert TUserError is not JUserError
 
 
+@pytest.mark.parametrize("shape", [(37,), (16,), (0,), (5, 33), (2, 3, 48)])
+def test_pack_2bit(shape):
+    codes = np.random.default_rng(sum(shape) + 1).integers(
+        0, 5, shape).astype(np.int8)
+    ref = jpack.pack_2bit(codes)
+    got = tpack.pack_2bit(codes)
+    _assert_same(ref, got, "pack_2bit")
+    n = shape[-1]
+    _assert_same(jpack.unpack_2bit(ref, n), tpack.unpack_2bit(got, n),
+                 "unpack_2bit")
+    np.testing.assert_array_equal(tpack.unpack_2bit(got, n), codes & 3)
+
+
+@pytest.mark.parametrize("k", [1, 5, 15, 31])
+def test_kmer_keys(k):
+    rng = np.random.default_rng(k)
+    for n in (0, k - 1, k, 200):
+        codes = rng.integers(0, 5, n).astype(np.int8)
+        ref, got = jpack.kmer_keys(codes, k), tpack.kmer_keys(codes, k)
+        for r, g in zip(ref, got):
+            _assert_same(r, g, f"kmer_keys k={k} n={n}")
+
+
+@pytest.mark.parametrize("case", ["planted", "gapped"])
+def test_oracle_sw_scalar_and_traceback_scalar(case):
+    """The scalar DP and walk equal their originals, and the port's batched
+    oracle row by row (the pairs take both E and F gaps, and ties)."""
+    make = planted_pairs if case == "planted" else gapped_pairs
+    q, w = make(13, 6, 14, 24)
+    q[0, :3] = 4                       # N never matches, even N vs N
+    w[0, :3] = 4
+    jsc, tsc = jconfig.ScoringParams(), tconfig.ScoringParams()
+    score, ie, je, dirs = tsw.sw_batch(q, w, tsc, want_dirs=True)
+    walks = tsw.traceback_batch(dirs, ie, je, q.shape[1])
+    for b in range(q.shape[0]):
+        ref = jsw.sw_scalar(q[b], w[b], jsc)
+        got = tsw.sw_scalar(q[b], w[b], tsc)
+        for r, g in zip(ref, got):
+            _assert_same(np.asarray(r), np.asarray(g), "sw_scalar")
+        assert got[:3] == (int(score[b]), int(ie[b]), int(je[b]))
+        walk = tsw.traceback_scalar(*got[3:], got[1], got[2], q.shape[1])
+        _assert_same(jsw.traceback_scalar(*ref[3:], ref[1], ref[2],
+                                          q.shape[1]), walk, "traceback")
+        _assert_same(walks[b], walk, "traceback_scalar vs traceback_batch")
+
+
+def test_oracle_mapping_quality(both_ds):
+    """The oracle's MAPQ margin equals its original, and the port's
+    `pipeline.align.mapping_quality` on the align step's records, as the
+    reference's two are equal."""
+    from rambl_tpu_torch.ops.seed import SeedTable
+    from rambl_tpu_torch.pipeline import align as tpalign
+
+    ds, _ = both_ds
+    n = 96
+    jcfg, tcfg = jconfig.PipelineConfig(), tconfig.PipelineConfig()
+    jidx = jbuilder.build_seed_index(ds.ref_seqs, ds.ref_lens, k=jcfg.k)
+    tidx = tbuilder.build_seed_index(ds.ref_seqs, ds.ref_lens, k=tcfg.k)
+    reads, lens = ds.reads[:n], ds.read_lens[:n]
+    ref = jalign.align_reads(reads, lens, ds.ref_seqs, jidx, jcfg, chunk=48)
+    got = talign.align_reads(reads, lens, ds.ref_seqs, tidx, tcfg, chunk=48)
+    mq = talign.mapping_quality(got)
+    _assert_same(jalign.mapping_quality(ref), mq, "mapping_quality")
+    recs = tpalign.align_batch(torch.from_numpy(reads),
+                               torch.from_numpy(lens),
+                               SeedTable.from_index(tidx, "cpu"),
+                               torch.from_numpy(ds.ref_seqs), tcfg)
+    _assert_same(mq, tpalign.mapping_quality(recs).numpy(),
+                 "oracle vs pipeline mapping_quality")
+    assert (mq > 0).any() and (mq == 0).any()
+
+
 def test_oracle_assemble_round(both_ds):
     ds, _ = both_ds
     tax = jtax.build_taxonomy_tables(ds.tax_parent, ds.tax_depth,

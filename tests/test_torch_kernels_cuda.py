@@ -795,3 +795,30 @@ def test_ring_dma_assembly_launches_k4_every_round(dev, monkeypatch):
     one = asm.assemble(*args, cfg, device=dev)
     assert _fields(mesh.genes) == _fields(one.genes)
     assert mesh.round_stats == one.round_stats
+
+
+def test_graft_entry_on_card_matches_cpu(dev):
+    """The entry hook's align step on the card (K1, and K2 + K3 on the
+    gapped reads) == its rerun on CPU tensors, field for field."""
+    from rambl_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert args[0].is_cuda
+    sw_cuda.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert sw_cuda.LAUNCHES["score"] == 1
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    _equal(got, want)
+
+
+def test_check_ring_dma_every_impl(dev):
+    """scripts/check_ring_dma on 2 virtual ranks: every transport, K4
+    included, gives np.roll bit for bit."""
+    from rambl_tpu_torch.scripts import check_ring_dma
+
+    ring_dma.reset_launches()
+    done = check_ring_dma.run(2, device=dev, out=lambda *a: None)
+    assert list(done) == list(ring_dma.IMPLS)
+    assert ring_dma.LAUNCHES["ring"] == 4      # one a rank, two K4 impls
