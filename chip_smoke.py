@@ -135,7 +135,8 @@ code is non-zero and no result line is printed:
    panel round's start does not climb; round 0's cluster stage equals its
    rerun on CPU tensors for 16 of its leaves (spawn and light ones, and
    the leaves with the most members, at max_bin_reads); recovery, genes,
-   stages and peak memory are printed, with no bar at this depth. (c)
+   stages and peak memory are printed, with no bar at this depth; the run
+   writes its panel dump (phase 17). (c)
    Config 5 at 250,000 of its 20 M reads (its chunked generator on phase
    10's panel): phase A (discovery + checkpoint in a temporary directory),
    then phase B from disk with the `.aux` sidecar, equal to an
@@ -159,7 +160,16 @@ code is non-zero and no result line is printed:
    (handed to a process of its own as a plain-array cache) at batch
    16,384: FULL, A, B and C in ms a batch, and D (the stream loop into 10
    M retention rows, 16 batches; the median of 3 loops and their spread)
-   in ms a batch with the device's idle share.
+   in ms a batch with the device's idle share;
+17. the diagnostics, on what phase 15 built. (a) `scripts.run_config3`'s
+   panel dump of 15 (b)'s run (written there, after its wall), read back
+   with its slot counts memory-mapped: its genes equal the run's, and
+   `scripts.diagnose_config3.run` classes every miss. (b) 15 (d)'s cohort
+   with phasing: `scripts.cache_config4_state` takes `leaf_counts_dict`
+   of every leaf on cuda:0, writes the state and reads it back equal;
+   `scripts.census_config4.run`, `scripts.diagnose_impure.run` and
+   `scripts.demonstrate_c4_ambiguity.run` on it: no residual wrong base
+   is fixable, and there are C4_RESIDUAL of them.
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
 main path (for K1 and K2 + K3 the whole assembly of phase 13 (b)), error
@@ -1245,7 +1255,8 @@ def phase_ladder(dev, ds, ds4, index4, card):
     round and none in polish, flat allocation, round 0's cluster stage
     equal to its CPU rerun; (c) config 5 at LADDER_C5_READS: phase A, then
     phase B from disk, equal to an uninterrupted run; (d) config 4 at full
-    size, held to its bars."""
+    size, held to its bars. Returns what phase 17 reads: (b)'s panel dump
+    and genes, (d)'s cohort and its results with phasing."""
     import os
     import tempfile
 
@@ -1263,6 +1274,7 @@ def phase_ladder(dev, ds, ds4, index4, card):
     def runner_out(*parts):
         print(*parts, file=sys.stderr, flush=True)
 
+    keep = {}
     os.environ["RAMBL_STAGE_TIMING"] = "1"
     try:
         # (a) config 2 at full size
@@ -1288,8 +1300,10 @@ def phase_ladder(dev, ds, ds4, index4, card):
             LADDER_RERUN_LEAVES)
         real_stage = tassemble.cluster_stage
         tassemble.cluster_stage = wrapper
+        dump_dir = tempfile.mkdtemp(prefix="rambl_smoke_c3_")
         try:
             c3 = run_config3.run(data=data3, max_genes=2048, device=dev,
+                                 dump=os.path.join(dump_dir, "panel"),
                                  out=runner_out)
         finally:
             tassemble.cluster_stage = real_stage
@@ -1321,6 +1335,12 @@ def phase_ladder(dev, ds, ds4, index4, card):
             f"after it); K1 and K2+K3 launch every round, none in polish; "
             f"allocation flat [{card}]")
         c3["recorder"].report(card, say)
+        say(f"    panel dump: {c3['dump_bytes'] / 1e9:.3f} GB written in "
+            f"{c3['dump_s']:.2f} s after the wall (phase 17 reads it) [{card}]")
+        keep.update(c3_dump=os.path.join(dump_dir, "panel"), c3_dir=dump_dir,
+                    c3_genes=res3.genes,
+                    c3_missed=np.setdiff1d(c3["detectable_refs"],
+                                           c3["recovered_refs"]).tolist())
         say(f"    round 0's cluster stage rerun on CPU tensors for "
             f"{record['leaves'].size} of its {record['n_leaves']} leaves "
             f"({record['spawn']} spawn, {record['light']} light, "
@@ -1376,7 +1396,8 @@ def phase_ladder(dev, ds, ds4, index4, card):
         del c5, res5, whole, data5, reads5, lens5
 
         # (d) config 4 at full size, held to its bars
-        c4 = run_config4.run(device=dev, out=runner_out)
+        co4 = run_config4.cohort()
+        c4 = run_config4.run(device=dev, co=co4, out=runner_out)
         for mode, (bar_rec, bar_det) in LADDER_C4_BARS.items():
             got = (c4[mode]["recovered"], c4[mode]["detectable"])
             if got != (bar_rec, bar_det):
@@ -1391,8 +1412,10 @@ def phase_ladder(dev, ds, ds4, index4, card):
             f"(mean cont {c4['off']['mean_cont']:.3f}) in "
             f"{c4['off']['wall_s']:.3f} s: the bars 36/40 and 22/40 held; "
             f"K1 and K2+K3 launch every round, none in polish [{card}]")
+        keep.update(c4_co=co4, c4_on=c4["on"]["results"])
     finally:
         del os.environ["RAMBL_STAGE_TIMING"]
+    return keep
 
 
 #: phase 16 (c): config 3's cluster block, at the reference script's reads
@@ -1528,6 +1551,113 @@ def phase_tools(dev, ds4, index4, card):
         f"{res['D']['device_ms']:.3f} ms, idle "
         f"{100 * res['D']['idle_share']:.1f}% [{card}]")
     say(f"    phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+#: config 4's residual wrong bases with phasing: the reference package's own
+#: `scripts/cache_config4_state.py` and `scripts/demonstrate_c4_ambiguity.py`
+#: give 40 on the CPU, on a state equal to the port's (PERF.md §6);
+#: SCALE_r5.json records 51, on a state the repository does not hold, for a
+#: reason not established. None of them may be fixable
+C4_RESIDUAL = 40
+
+
+def phase_diagnostics(dev, ds4, keep, card):
+    """Phase 17: (a) `diagnose_config3.run` on phase 15 (b)'s panel dump,
+    read back memory-mapped, on phase 10's panel; (b) phase 15 (d)'s cohort
+    with phasing through `cache_config4_state` (leaf counts on the card, a
+    write and a read), then `census_config4.run`, `diagnose_impure.run`
+    and `demonstrate_c4_ambiguity.run` on the state read back."""
+    import os
+    import shutil
+    import tempfile
+
+    from rambl_tpu_torch.ops import sw_cuda
+    from rambl_tpu_torch.scripts import (
+        cache_config4_state,
+        census_config4,
+        demonstrate_c4_ambiguity,
+        diagnose_config3,
+        diagnose_impure,
+        run_config3,
+    )
+
+    def runner_out(*parts):
+        print(*parts, file=sys.stderr, flush=True)
+
+    t_phase = time.perf_counter()
+    # (a) config 3's misses, from the dump
+    t0 = time.perf_counter()
+    dump = run_config3.load_dump(keep["c3_dump"])
+    load_s = time.perf_counter() - t0
+    counts = dump["slot_counts"][0]
+    if not isinstance(counts, np.memmap):
+        raise AssertionError("the dump's slot counts are not memory-mapped")
+    if gene_fields(dump["genes"]) != gene_fields(keep["c3_genes"]):
+        raise AssertionError("config 3: the dump's genes differ from the "
+                             "run's")
+    t0 = time.perf_counter()
+    classes, base_classes, rows = diagnose_config3.run(
+        dump, ds4.ref_seqs, ds4.ref_lens, ds4.ref_taxon, out=runner_out)
+    diag_s = time.perf_counter() - t0
+    if [row["ref"] for row in rows] != keep["c3_missed"]:
+        raise AssertionError(f"config 3: the run missed {keep['c3_missed']}"
+                             f", the dump's diagnosis classed "
+                             f"{[row['ref'] for row in rows]}")
+    unknown = ((set(classes) - set(diagnose_config3.CLASSES))
+               | (set(base_classes) - set(diagnose_config3.BASE_CLASSES)))
+    if unknown:
+        raise AssertionError(f"config 3: unknown classes {sorted(unknown)}")
+    say(f"[17 diagnostics] (a) diagnose_config3 on 15 (b)'s panel dump "
+        f"({len(dump['genes'])} genes equal to the run's; slot counts "
+        f"{counts.shape[0]} x {counts.shape[1]} int32, memory-mapped; read "
+        f"in {load_s:.2f} s): {len(rows)} misses classed in {diag_s:.2f} s: "
+        f"{dict(classes)}; wrong bases {dict(base_classes)} [{card}]")
+    del dump, counts
+    shutil.rmtree(keep["c3_dir"], ignore_errors=True)
+
+    # (b) config 4's state, census, impure diagnosis and ambiguity proof
+    state_dir = tempfile.mkdtemp(prefix="rambl_smoke_c4_")
+    try:
+        path = os.path.join(state_dir, "state.npz")
+        sw_cuda.reset_launches()
+        t0 = time.perf_counter()
+        st = cache_config4_state.run(co=keep["c4_co"], results=keep["c4_on"],
+                                     device=dev, path=path, out=runner_out)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launched = dict(sw_cuda.LAUNCHES)
+        if not launched["score"]:
+            raise AssertionError("config 4's leaf counts launched no K1")
+        back = cache_config4_state.load_state(path)
+        if ([gene_fields(g) for g in back.geneses]
+                != [gene_fields(g) for g in st.geneses]
+                or any(set(a) != set(b) or any(
+                    not np.array_equal(a[t], b[t]) for t in b)
+                    for a, b in zip(back.counts_list, st.counts_list))):
+            raise AssertionError("config 4: the state read back differs")
+        t0 = time.perf_counter()
+        buckets = census_config4.run(back, out=runner_out)
+        impure, _ = diagnose_impure.run(back, out=runner_out)
+        total, _, n_fix, n_all = demonstrate_c4_ambiguity.run(
+            back, out=runner_out)
+        host_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(state_dir, ignore_errors=True)
+    if n_fix or n_all != C4_RESIDUAL:
+        raise AssertionError(f"config 4: {n_all - n_fix}/{n_all} residual "
+                             f"wrong bases invisible or ambiguous, {n_fix} "
+                             f"fixable; the bar is {C4_RESIDUAL}/"
+                             f"{C4_RESIDUAL}, 0 fixable")
+    say(f"[17 diagnostics] (b) config 4 with phasing (15 (d)'s cohort and "
+        f"genes): leaf counts of {len(st.counts_list[0])} leaves x "
+        f"{len(st.counts_list)} samples on the card in {build_s:.2f} s (K1 "
+        f"{launched['score']}, K2+K3 {launched['align']} launches), the "
+        f"state written and read back equal; census {dict(buckets)}; "
+        f"impure {dict(impure.most_common())}; demonstration "
+        f"{dict(total)}: {n_all - n_fix}/{n_all} invisible or ambiguous, "
+        f"{n_fix} fixable (the bar: {C4_RESIDUAL}, 0); host tools "
+        f"{host_s:.2f} s [{card}]")
+    say(f"    phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def run_apart(code: str) -> dict:
@@ -2395,10 +2525,14 @@ def main() -> None:
     del asm
 
     # ---- 15. the scale ladder at cut depth ---------------------------------
-    phase_ladder(dev, ds, ds4, index4, card)
+    keep = phase_ladder(dev, ds, ds4, index4, card)
 
     # ---- 16. the entry hooks and the card tools ---------------------------
     phase_tools(dev, ds4, index4, card)
+
+    # ---- 17. the diagnostics ------------------------------------------------
+    phase_diagnostics(dev, ds4, keep, card)
+    del keep
 
     peak = int32_ops_per_s(dev)
     n_path = PAIRS

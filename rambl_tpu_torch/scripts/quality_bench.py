@@ -75,19 +75,20 @@ def _kmer_keys(codes, k=K) -> np.ndarray:
     return np.unique(key)
 
 
-def best_matches(gene_seqs, ref_seqs, ref_lens, refs):
-    """For each gene (code arrays), its best reference among `refs`
-    (ascending ids) and its containment: (best (n_genes,) ids, cont
-    (n_genes,) float64)."""
+def shared_kmers(gene_seqs, ref_seqs, ref_lens, refs):
+    """The distinct 25-mers each gene (code arrays) shares with each of
+    `refs` -> (shared (n_genes, len(refs)) int, n_kmers (n_genes,) int64:
+    each gene's distinct 25-mers, at least 1). A containment is
+    shared / n_kmers, the reference scripts' float division."""
     from scipy import sparse
 
     refs = np.asarray(refs, np.int64)
     gk = [_kmer_keys(g) for g in gene_seqs]
     rk = [_kmer_keys(ref_seqs[r, : ref_lens[r]]) for r in refs]
-    if not gk:
-        return np.zeros(0, np.int64), np.zeros(0)
-    keys, col = np.unique(np.concatenate(gk + rk + [np.zeros(0, np.int64)]),
-                          return_inverse=True)
+    n_kmers = np.array([max(p.size, 1) for p in gk], np.int64)
+    if not gk or not refs.size:
+        return np.zeros((len(gk), refs.size), np.int64), n_kmers
+    keys, col = np.unique(np.concatenate(gk + rk), return_inverse=True)
 
     def incidence(parts, cols):
         rows = np.repeat(np.arange(len(parts)), [p.size for p in parts])
@@ -97,15 +98,24 @@ def best_matches(gene_seqs, ref_seqs, ref_lens, refs):
 
     n_g = sum(p.size for p in gk)
     shared = (incidence(gk, col[:n_g]) @ incidence(rk, col[n_g:]).T).toarray()
-    idx = np.argmax(shared, axis=1) if refs.size else np.zeros(len(gk), int)
-    n_shared = (shared[np.arange(len(gk)), idx] if refs.size
-                else np.zeros(len(gk), np.int64))
-    n_kmers = np.array([max(p.size, 1) for p in gk], np.int64)
-    best = refs[idx] if refs.size else np.full(len(gk), -1, np.int64)
-    return best, np.array([int(a) / int(b) for a, b in zip(n_shared, n_kmers)])
+    return shared, n_kmers
 
 
-def _best_cont(genes, ds, candidates, detectable):
+def best_matches(gene_seqs, ref_seqs, ref_lens, refs):
+    """For each gene (code arrays), its best reference among `refs`
+    (ascending ids; the first of those sharing the most 25-mers) and its
+    containment: (best (n_genes,) ids, cont (n_genes,) float64)."""
+    refs = np.asarray(refs, np.int64)
+    shared, n_kmers = shared_kmers(gene_seqs, ref_seqs, ref_lens, refs)
+    if not refs.size:
+        return np.full(len(n_kmers), -1, np.int64), np.zeros(len(n_kmers))
+    idx = np.argmax(shared, axis=1)
+    n_shared = shared[np.arange(len(n_kmers)), idx]
+    return refs[idx], np.array([int(a) / int(b)
+                                for a, b in zip(n_shared, n_kmers)])
+
+
+def best_containment(genes, ds, candidates, detectable):
     """{detectable ref: containment of its best gene} over `genes`, each
     gene scored against `candidates` (ascending ids)."""
     best = {int(r): 0.0 for r in detectable}
@@ -121,29 +131,48 @@ def recovered(ds, genes, cov_min=5.0):
     """quality_bench's rule: references with >= cov_min x simulated coverage
     (from `true_ref`) and a gene at > 95% containment, every reference a
     candidate -> (recovered, detectable, mean_cont)."""
-    cov = np.bincount(ds.true_ref, minlength=ds.n_refs) * 100 / ds.ref_lens
-    best = _best_cont(genes, ds, np.arange(ds.n_refs),
-                      np.nonzero(cov >= cov_min)[0])
+    best = best_containment(genes, ds, np.arange(ds.n_refs),
+                            np.nonzero(coverage(ds) >= cov_min)[0])
     mc = np.mean(list(best.values())) if best else 0.0
     return sum(1 for c in best.values() if c > 0.95), len(best), float(mc)
 
 
-def _present_rule(ds, genes, depth):
+def present_recovery(ds, genes, depth):
+    """run_config3's and run_config5's sets: present references (abundance
+    > 0) with `depth` >= 3x their length are detectable; a gene recovers
+    the present reference it matches best when its containment is > 95%
+    -> (recovered ids ascending, detectable, present)."""
     present = np.nonzero(ds.abundance > 0)[0]
     detectable = present[depth[present] >= 3 * ds.ref_lens[present]]
     ids, cont = best_matches([g.seq for g in genes], ds.ref_seqs, ds.ref_lens,
                              present)
-    rec = set(ids[cont > 0.95].tolist()) & set(detectable.tolist())
-    return len(rec), int(detectable.size), int(present.size)
+    return np.unique(ids[cont > 0.95]), detectable, present
+
+
+def _present_rule(ds, genes, depth):
+    rec, detectable, present = present_recovery(ds, genes, depth)
+    return (int(np.isin(rec, detectable).sum()), int(detectable.size),
+            int(present.size))
+
+
+def true_depth(ds, true_refs=None):
+    """Each reference's simulated bases (its reads x 100), from
+    `ds.true_ref` or pooled over `true_refs` (one array a sample)."""
+    if true_refs is None:
+        true_refs = [ds.true_ref]
+    reads = sum(np.bincount(tr, minlength=ds.n_refs) for tr in true_refs)
+    return reads * 100.0
+
+
+def coverage(ds, true_refs=None):
+    """Each reference's simulated coverage: `true_depth` / its length."""
+    return true_depth(ds, true_refs) / ds.ref_lens
 
 
 def recovered_present(ds, genes):
-    """run_config3's rule: present references (abundance > 0) with >= 3x
-    true depth are detectable; a gene recovers the present reference it
-    matches best when its containment is > 95% -> (recovered, detectable,
-    present)."""
-    depth = np.bincount(ds.true_ref, minlength=ds.n_refs) * 100.0
-    return _present_rule(ds, genes, depth)
+    """run_config3's rule (`present_recovery` at the true depth) ->
+    (recovered, detectable, present)."""
+    return _present_rule(ds, genes, true_depth(ds))
 
 
 def recovered_expected(ds, genes, n_reads):
@@ -163,12 +192,10 @@ def recovery(ds, results, cov_min=5.0, true_refs=None):
     the cohort's samples (`true_refs`, one array a sample) and a gene of
     any sample at > 95% containment -> (recovered, detectable,
     mean_cont)."""
-    cov = np.zeros(ds.n_refs)
-    for tr in true_refs:
-        cov += np.bincount(tr, minlength=ds.n_refs)
-    cov = cov * 100 / ds.ref_lens
-    best = _best_cont([g for res in results for g in res.genes], ds,
-                      np.arange(ds.n_refs), np.nonzero(cov >= cov_min)[0])
+    cov = coverage(ds, true_refs)
+    best = best_containment([g for res in results for g in res.genes], ds,
+                            np.arange(ds.n_refs),
+                            np.nonzero(cov >= cov_min)[0])
     rec = sum(1 for c in best.values() if c > 0.95)
     return rec, len(best), float(np.mean(list(best.values()) or [0.0]))
 

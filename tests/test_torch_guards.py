@@ -221,7 +221,8 @@ def test_port_imports_no_rambl_tpu():
                                    "run_config4", "run_config5",
                                    "graft_entry", "dryrun_multichip",
                                    "profile_cluster", "bench_align_scale",
-                                   "check_ring_dma"])
+                                   "check_ring_dma", "cache_config4_state",
+                                   "census_config4"])
 def test_entry_points_need_the_card_by_default(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points would run")
@@ -235,6 +236,8 @@ def test_entry_points_need_the_card_by_default(entry, tmp_path):
         bench_align_scale,
         bench_sw_variants,
         build_scale_caches,
+        cache_config4_state,
+        census_config4,
         check_ring_dma,
         profile_cluster,
         quality_bench,
@@ -282,6 +285,10 @@ def test_entry_points_need_the_card_by_default(entry, tmp_path):
         "profile_cluster": profile_cluster.run,
         "bench_align_scale": bench_align_scale.run,
         "check_ring_dma": check_ring_dma.run,
+        # the config-4 state and census: each raises before it simulates
+        # its cohort
+        "cache_config4_state": cache_config4_state.run,
+        "census_config4": lambda: census_config4.main([]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run()
