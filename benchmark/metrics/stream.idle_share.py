@@ -1,0 +1,8 @@
+"""The share of the traced window in which the device ran nothing while
+the stream (`stream_align`, `stream_batches`) ran: 1 - busy / window."""
+
+
+def read(rec):
+    if rec["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - rec["busy_s"] / rec["window_s"])
