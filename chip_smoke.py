@@ -78,9 +78,9 @@ code is non-zero and no result line is printed:
    tests/test_assembly_parity.py, dense and with pileup_slot_nodes=1: the
    genes equal the port's NumPy oracle field for field. (b) Config 2 at full
    width: K1 and K2 + K3 must launch (counts set to 0 just before the round,
-   read just after); wall time, `_StageClock` stages (RAMBL_STAGE_TIMING=1)
-   and gene count; the same round with pileup_slot_nodes=1 gives the same
-   genes; the cluster stage (`assemble.cluster_stage`) on phase 4's stream
+   read just after); wall time, the round's stage spans
+   (RAMBL_STAGE_TIMING=1) and gene count; the same round with
+   pileup_slot_nodes=1 gives the same genes; the cluster stage (`assemble.cluster_stage`) on phase 4's stream
    outputs, profiled (device busy share, five longest device operations)
    and its host syncs counted, equals its rerun on CPU tensors for at least
    16 leaves bit for bit (spawn and light leaves where present; the light
@@ -92,8 +92,8 @@ code is non-zero and no result line is printed:
    n_rounds, converged, the pre-polish panel, polish's `changed` and the
    genes equal the port's oracle `oracle.pipeline.assemble`. (b) Config 2
    at full width (max_assembly_iters 5, polish on): rounds, genes,
-   full-length genes, wall and genes/hour; per round its `_StageClock`
-   stages, the col maps' build, K1 and K2 + K3 launches (> 0 in every
+   full-length genes, wall and genes/hour; per round its stage spans,
+   the col maps' build, K1 and K2 + K3 launches (> 0 in every
    round, 0 in polish), peak device memory and what is allocated at its
    start (which must not climb). (c) The same run killed after round 1
    (a wrapped `assemble_round` raises) resumes from its checkpoint and

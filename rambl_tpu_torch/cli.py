@@ -20,7 +20,9 @@ Subcommands:
 (name<TAB>k__...;p__...;...) or falls back to one leaf per reference.
 Several --reads files are a cohort: one shared index, per-sample outputs
 (`OUT.sampleN.fasta`) and cross-sample phasing. `--profile DIR` writes a
-torch.profiler trace of the assembly. Under `--mesh` the process joins
+torch.profiler trace of the assembly, in which the port's spans
+(`utils/trace.py`: round, stream, align, cluster and polish) name the
+host's work. Under `--mesh` the process joins
 the process group its environment describes (`init_distributed`), adopts
 process 0's config and checks that every process read the same reference;
 a mesh across processes is refused.

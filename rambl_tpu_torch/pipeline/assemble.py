@@ -34,9 +34,6 @@ replica (whole rows), so checkpoints and sidecars do not depend on the mesh.
 from __future__ import annotations
 
 import dataclasses
-import os
-import sys
-import time
 from typing import List, NamedTuple
 
 import numpy as np
@@ -71,45 +68,10 @@ from rambl_tpu_torch.pipeline.pileup import (
     node_slot_pileup,
     polymorphic_mask,
 )
+from rambl_tpu_torch.utils import trace
 from rambl_tpu_torch.utils.errors import UserError
 
 RETAINED = ("query", "ref_col", "bins", "score", "ref", "strand")
-
-
-def _stage_timing() -> bool:
-    return bool(int(os.environ.get("RAMBL_STAGE_TIMING", "0")))
-
-
-class _StageClock:
-    """Accumulates wall time per named stage when the environment sets
-    RAMBL_STAGE_TIMING=1 (read as the clock is made), else does nothing.
-    Diagnostic only: a mark synchronizes the card its tensors are on, which
-    serializes the dispatch pipeline, so leave it off for benchmarks."""
-
-    def __init__(self):
-        self.on = _stage_timing()
-        self.t = {}
-        self._last = time.time()
-
-    def mark(self, name, *sync):
-        if not self.on:
-            return
-        for x in sync:
-            for t in (x if isinstance(x, list) else [x]):   # mesh: per rank
-                if isinstance(t, torch.Tensor) and t.is_cuda:
-                    torch.cuda.synchronize(t.device)
-        now = time.time()
-        dt = now - self._last
-        self.t[name] = round(self.t.get(name, 0.0) + dt, 2)
-        self._last = now
-        if dt > 5.0:
-            # live progress for long runs: stage boundaries as they happen
-            # (stderr; the stats dict still gets the per-round totals)
-            print(f"[stage] {name} +{dt:.0f}s", file=sys.stderr, flush=True)
-
-    def into(self, stats):
-        if self.on:
-            stats.update({f"t_{k}": v for k, v in self.t.items()})
 
 
 class StreamTables(NamedTuple):
@@ -141,8 +103,9 @@ def _align_bin_batch(reads, lens, table: SeedTable, st: StreamTables,
     coordinates -> (query, proj, bins, score, ref, strand). The lengths are
     not checked against cfg.sw_rows here: the stream checks them on the host
     (the reference's jitted step leaves the check to it too)."""
-    return _bin_project(align_batch(reads, lens, table, st.ref_seqs, cfg,
-                                    check_rows=False), st, cfg)
+    res = align_batch(reads, lens, table, st.ref_seqs, cfg, check_rows=False)
+    with trace.span("align.bin"):
+        return _bin_project(res, st, cfg)
 
 
 def _bin_project(res, st: StreamTables, cfg: PipelineConfig):
@@ -229,42 +192,59 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
     if ring_shards is not None or stream_tables is not None:
         raise ValueError("ring_shards and stream_tables need a mesh")
     device = resolve(device)
-    table = SeedTable.from_index(index, device)
-    if col_maps is None:
-        col_maps = build_col_maps(np.asarray(ref_seqs), np.asarray(ref_lens),
-                                  np.asarray(tables.ref_taxon))
-    st = StreamTables.from_host(ref_seqs, tables, col_maps, device)
-    n_nodes = tables.n_nodes
-    ref_len = ref_seqs.shape[1]
-    i32 = torch.int32
+    with trace.span("stream"):
+        return _stream_align_one(reads, lens, index, ref_seqs, ref_lens,
+                                 tables, cfg, col_maps, device)
 
-    padded, plens, nb, B = _pad_batches(np.asarray(reads, np.int8),
-                                        np.asarray(lens, np.int32),
-                                        cfg.batch_size)
-    dense = n_nodes <= cfg.pileup_slot_nodes
-    if dense:
-        counts = torch.zeros((n_nodes, ref_len * 4), dtype=i32, device=device)
-        span_diff = torch.zeros((n_nodes, ref_len + 1), dtype=i32,
-                                device=device)
-    else:
-        counts = span_diff = None
-    read_count = torch.zeros((n_nodes,), dtype=i32, device=device)
 
-    host_reads = torch.from_numpy(padded)
-    host_lens = torch.from_numpy(plens)
-    if device.type == "cuda":
-        host_reads = host_reads.pin_memory()
-        host_lens = host_lens.pin_memory()
+def _stream_align_one(reads, lens, index, ref_seqs, ref_lens, tables,
+                      cfg: PipelineConfig, col_maps, device):
+    """`stream_align` on one device: its preparation (from entry to the
+    first batch) and its loop, each piece a span."""
+    with trace.span("stream.prepare"):
+        with trace.span("stream.index_upload"):
+            table = SeedTable.from_index(index, device)
+        with trace.span("stream.tables_upload"):
+            if col_maps is None:
+                with trace.span("stream.col_maps"):
+                    col_maps = build_col_maps(np.asarray(ref_seqs),
+                                              np.asarray(ref_lens),
+                                              np.asarray(tables.ref_taxon))
+            st = StreamTables.from_host(ref_seqs, tables, col_maps, device)
+        n_nodes = tables.n_nodes
+        ref_len = ref_seqs.shape[1]
+        i32 = torch.int32
+
+        with trace.span("stream.pad"):
+            padded, plens, nb, B = _pad_batches(np.asarray(reads, np.int8),
+                                                np.asarray(lens, np.int32),
+                                                cfg.batch_size)
+        with trace.span("stream.pin"):
+            host_reads = torch.from_numpy(padded)
+            host_lens = torch.from_numpy(plens)
+            if device.type == "cuda":
+                host_reads = host_reads.pin_memory()
+                host_lens = host_lens.pin_memory()
+        with trace.span("stream.buffers"):
+            if n_nodes <= cfg.pileup_slot_nodes:
+                counts = torch.zeros((n_nodes, ref_len * 4), dtype=i32,
+                                     device=device)
+                span_diff = torch.zeros((n_nodes, ref_len + 1), dtype=i32,
+                                        device=device)
+            else:
+                counts = span_diff = None
+            read_count = torch.zeros((n_nodes,), dtype=i32, device=device)
+            BT = nb * cfg.batch_size
+            bufs = retention_buffers(BT, padded.shape[1], ref_len, device)
 
     def _put(i):
         sl = slice(i * cfg.batch_size, (i + 1) * cfg.batch_size)
         return (host_reads[sl].to(device, non_blocking=True),
                 host_lens[sl].to(device, non_blocking=True))
 
-    BT = nb * cfg.batch_size
-    bufs = retention_buffers(BT, padded.shape[1], ref_len, device)
-    stream_batches(_put, nb, table, st, cfg, bufs, read_count, counts,
-                   span_diff)
+    with trace.span("stream.loop"):
+        stream_batches(_put, nb, table, st, cfg, bufs, read_count, counts,
+                       span_diff)
     merged = {k: (v if BT == B else v[:B]) for k, v in bufs.items()}
     return merged, counts, span_diff, read_count
 
@@ -298,16 +278,18 @@ def stream_batches(put, nb: int, table: SeedTable, st: StreamTables,
     bs = cfg.batch_size
     nxt = put(0) if nb else None
     for i in range(nb):
-        cur, nxt = nxt, (put(i + 1) if i + 1 < nb else None)
-        outs = _align_bin_batch(cur[0], cur[1], table, st, cfg)
-        q, rc, b = outs[0], outs[1], outs[2]
-        if counts is not None:
-            _pileup_accum(q, rc, b, counts, span_diff, read_count, n_nodes,
-                          st.ref_seqs.shape[1])
-        else:
-            _read_count_accum(b, read_count, n_nodes)
-        for k, v in zip(RETAINED, outs):
-            bufs[k][i * bs:(i + 1) * bs] = v
+        with trace.span("stream.batch"):
+            cur, nxt = nxt, (put(i + 1) if i + 1 < nb else None)
+            outs = _align_bin_batch(cur[0], cur[1], table, st, cfg)
+            with trace.span("stream.accumulate"):
+                q, rc, b = outs[0], outs[1], outs[2]
+                if counts is not None:
+                    _pileup_accum(q, rc, b, counts, span_diff, read_count,
+                                  n_nodes, st.ref_seqs.shape[1])
+                else:
+                    _read_count_accum(b, read_count, n_nodes)
+                for k, v in zip(RETAINED, outs):
+                    bufs[k][i * bs:(i + 1) * bs] = v
 
 
 def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
@@ -372,8 +354,10 @@ def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
                    for d in dict.fromkeys(mesh.devices)}
         table = [per_dev[d] for d in mesh.devices]
     if col_maps is None:
-        col_maps = build_col_maps(np.asarray(ref_seqs), np.asarray(ref_lens),
-                                  np.asarray(tables.ref_taxon))
+        with trace.span("stream.col_maps"):
+            col_maps = build_col_maps(np.asarray(ref_seqs),
+                                      np.asarray(ref_lens),
+                                      np.asarray(tables.ref_taxon))
     if stream_tables is not None:
         st = list(stream_tables)
         if len(st) != n or any(
@@ -470,31 +454,37 @@ def cluster_round0_members(qm, rcm, bins_m, mvalid, counts, span_diff,
     assign-all-to-cluster-0 / kact=1 - skip features + DP entirely. Bitwise
     identical to spawn=True on such leaves."""
     ref_len = counts.shape[1] // 4   # counts rows are FLAT (node_pileup)
-    if node2slot is None:
-        leaf_counts, leaf_span = leaf_pileup(
-            counts, span_diff, leaves, anc_path, depth, cfg.bin_share_depth)
-        excl_counts = counts[leaves.long()].reshape(-1, ref_len, 4)
-    else:
-        leaf_counts, leaf_span = leaf_pileup_slots(
-            counts, span_diff, node2slot, leaves, anc_path, depth,
-            cfg.bin_share_depth)
-        ls = node2slot[leaves.long()]
-        excl_counts = torch.where(
-            (ls >= 0)[:, None, None],
-            counts[torch.clamp(ls, 0, counts.shape[0] - 1).long()].reshape(
-                -1, ref_len, 4), 0)
-    # consensus mask is UNCAPPED (capping would crowd out late discriminating
-    # columns); the feature columns below take the first max_poly_cols of it
-    pm = polymorphic_mask(
-        leaf_counts, cfg.min_coverage, cfg.poly_min_minor_count,
-        cfg.poly_minor_frac_num, cfg.poly_minor_frac_den, ref_len,
-    )
+    with trace.span("cluster.features"):
+        if node2slot is None:
+            leaf_counts, leaf_span = leaf_pileup(
+                counts, span_diff, leaves, anc_path, depth,
+                cfg.bin_share_depth)
+            excl_counts = counts[leaves.long()].reshape(-1, ref_len, 4)
+        else:
+            leaf_counts, leaf_span = leaf_pileup_slots(
+                counts, span_diff, node2slot, leaves, anc_path, depth,
+                cfg.bin_share_depth)
+            ls = node2slot[leaves.long()]
+            excl_counts = torch.where(
+                (ls >= 0)[:, None, None],
+                counts[torch.clamp(ls, 0, counts.shape[0] - 1).long()
+                       ].reshape(-1, ref_len, 4), 0)
+        # consensus mask is UNCAPPED (capping would crowd out late
+        # discriminating columns); the feature columns below take the first
+        # max_poly_cols of it
+        pm = polymorphic_mask(
+            leaf_counts, cfg.min_coverage, cfg.poly_min_minor_count,
+            cfg.poly_minor_frac_num, cfg.poly_minor_frac_den, ref_len,
+        )
+        if spawn:
+            pol_cols, pol_valid = feature_columns(pm, cfg.max_poly_cols)
+            feat = leaf_features_dense(qm, rcm, mvalid, pol_cols, pol_valid,
+                                       ref_len)
+            # leaf-exclusive only
+            can_seed = (bins_m == leaves[:, None]) & mvalid
     if spawn:
-        pol_cols, pol_valid = feature_columns(pm, cfg.max_poly_cols)
-        feat = leaf_features_dense(qm, rcm, mvalid, pol_cols, pol_valid,
-                                   ref_len)
-        can_seed = (bins_m == leaves[:, None]) & mvalid  # leaf-exclusive only
-        dp = dp_means_leaves(feat, can_seed, cfg)
+        with trace.span("cluster.dp_means"):
+            dp = dp_means_leaves(feat, can_seed, cfg)
         assign, kact = dp.assign, dp.kact
     else:
         assign = torch.zeros(mvalid.shape, dtype=torch.int32,
@@ -502,13 +492,15 @@ def cluster_round0_members(qm, rcm, bins_m, mvalid, counts, span_diff,
         kact = torch.ones((mvalid.shape[0],), dtype=torch.int32,
                           device=mvalid.device)
 
-    cons = cluster_consensus_leaves(
-        qm, rcm, mvalid, assign, pm, leaf_counts, leaf_span, cfg
-    )
-    # node-space counts at the leaf itself = leaf-EXCLUSIVE pileup
-    mh = minor_haplotype_leaves(excl_counts, leaf_counts, leaf_span, cfg)
-    n_mem = _chain_read_count(read_count, leaves, anc_path, depth,
-                              cfg.bin_share_depth)
+    with trace.span("cluster.consensus"):
+        cons = cluster_consensus_leaves(
+            qm, rcm, mvalid, assign, pm, leaf_counts, leaf_span, cfg
+        )
+    with trace.span("cluster.minor_haps"):
+        # node-space counts at the leaf itself = leaf-EXCLUSIVE pileup
+        mh = minor_haplotype_leaves(excl_counts, leaf_counts, leaf_span, cfg)
+        n_mem = _chain_read_count(read_count, leaves, anc_path, depth,
+                                  cfg.bin_share_depth)
     return cons, kact, n_mem, mh
 
 
@@ -523,18 +515,20 @@ def cluster_round0_core(query, ref_col, bins, counts, span_diff,
     cluster.bin_sort - `cluster_stage` sorts the B reads once for all
     of its blocks. Membership is range-based (O(NL*D*M), not O(NL*B)),
     its width capped at B so small runs keep the dense table's shapes."""
-    if bin_ranges is None:
-        order, nstart, nend = bin_sort(bins, anc_path.shape[0])
-    else:
-        order, nstart, nend = bin_ranges
-    midx, mvalid = member_table_ranges(
-        order, nstart, nend, leaves, anc_path, depth,
-        min(cfg.max_bin_reads, bins.shape[0]), cfg.bin_share_depth)
-    # ref_col may arrive int16 (streaming retention): widen only AFTER the
-    # member gather, so the full-read-range array never exists in int32
-    mi = midx.long()
-    qm = query[mi]                                       # (NL, M, L)
-    rcm = ref_col[mi].to(torch.int32)
+    with trace.span("cluster.members"):
+        if bin_ranges is None:
+            order, nstart, nend = bin_sort(bins, anc_path.shape[0])
+        else:
+            order, nstart, nend = bin_ranges
+        midx, mvalid = member_table_ranges(
+            order, nstart, nend, leaves, anc_path, depth,
+            min(cfg.max_bin_reads, bins.shape[0]), cfg.bin_share_depth)
+        # ref_col may arrive int16 (streaming retention): widen only AFTER
+        # the member gather, so the full-read-range array never exists in
+        # int32
+        mi = midx.long()
+        qm = query[mi]                                       # (NL, M, L)
+        rcm = ref_col[mi].to(torch.int32)
     return cluster_round0_members(
         qm, rcm, bins[mi], mvalid, counts, span_diff, read_count,
         leaves, anc_path, depth, cfg, node2slot=node2slot, spawn=spawn)
@@ -676,6 +670,37 @@ def cluster_stage(rec, counts, span_diff, read_count, leaves, tables,
     runs `parallel.steps.make_cluster_step`: every rank clusters a slice of
     the block's leaves over the sharded retention (the reference's
     `_cluster_block` mesh branch)."""
+    with trace.span("cluster"):
+        with trace.span("cluster.prepare"):
+            sets, blk, block = _cluster_blocks(
+                rec, counts, span_diff, read_count, leaves, tables, cfg,
+                node2slot, mesh)
+        # per block (and rank): called, emit, n_reads, kact, n_mem and the
+        # MinorHap's called, emit, n_reads, n_cols, fetched to the host
+        parts, proc = [], []
+        for lset, spawn in sets:
+            for s in range(0, lset.size, blk):
+                lb = lset[s: s + blk]
+                proc.append(lb)
+                with trace.span("cluster.block"):
+                    outs = block(lb, spawn)
+                    with trace.span("cluster.fetch"):
+                        for cons_b, kact_b, n_mem_b, mh_b in outs:
+                            parts.append([to_host(x) for x in (
+                                *cons_b, kact_b, n_mem_b, *mh_b)])
+                        trace.settle()
+        order = np.argsort(np.concatenate(proc), kind="stable")  # ascending
+        cols = [np.concatenate([p[i] for p in parts])[order]
+                for i in range(9)]
+    return ConsensusOut(*cols[:3]), cols[3], cols[4], MinorHap(*cols[5:])
+
+
+def _cluster_blocks(rec, counts, span_diff, read_count, leaves, tables,
+                    cfg: PipelineConfig, node2slot, mesh):
+    """`cluster_stage`'s preparation: the leaves split into the spawn and
+    light sets, the block size, and `block(lb, spawn)`, which clusters one
+    block of leaves and returns its outputs on the device, one tuple a
+    rank."""
     rc_leaf = to_host(_replica(read_count, mesh))[leaves]
     sets = [(leaves[rc_leaf > 0], True), (leaves[rc_leaf == 0], False)]
     blk = cfg.cluster_leaf_block if cfg.cluster_leaf_block > 0 else leaves.size
@@ -710,19 +735,7 @@ def cluster_stage(rec, counts, span_diff, read_count, leaves, tables,
                                 counts, span_diff, read_count, lb, anc, dep,
                                 n2s)
             return [o for o in outs if o is not None]   # rank order
-    # per block (and rank): called, emit, n_reads, kact, n_mem and the
-    # MinorHap's called, emit, n_reads, n_cols, fetched to the host
-    parts, proc = [], []
-    for lset, spawn in sets:
-        for s in range(0, lset.size, blk):
-            lb = lset[s: s + blk]
-            proc.append(lb)
-            for cons_b, kact_b, n_mem_b, mh_b in block(lb, spawn):
-                parts.append([to_host(x) for x in (*cons_b, kact_b, n_mem_b,
-                                                   *mh_b)])
-    order = np.argsort(np.concatenate(proc), kind="stable")  # ascending ids
-    cols = [np.concatenate([p[i] for p in parts])[order] for i in range(9)]
-    return ConsensusOut(*cols[:3]), cols[3], cols[4], MinorHap(*cols[5:])
+    return sets, blk, block
 
 
 def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
@@ -743,66 +756,75 @@ def assemble_round(reads, lens, ref_seqs, ref_lens, tables, cfg,
     shards on that mesh (`stream_align`).
     """
     device = None if mesh is not None else resolve(device)
-    clock = _StageClock()
-    if index is None:
-        index = build_seed_index(ref_seqs, ref_lens, k=cfg.k, n_bits=n_bits)
-    clock.mark("index")
-    rec, counts, span_diff, read_count = stream_align(
-        reads, lens, index, ref_seqs, ref_lens, tables, cfg, mesh=mesh,
-        col_maps=col_maps, device=device, ring_shards=ring_shards)
-    clock.mark("align", rec["query"], counts, read_count)
-    if mesh is not None and counts is not None and cfg.shard_positions:
-        from rambl_tpu_torch.parallel.mesh import put_replicated
+    cards = mesh.devices if mesh is not None else [device]
+    with trace.Stages(cards) as stages, trace.span("round"):
+        with stages("round.index", "index"):
+            if index is None:
+                index = build_seed_index(ref_seqs, ref_lens, k=cfg.k,
+                                         n_bits=n_bits)
+        with stages("round.stream", "align"):
+            rec, counts, span_diff, read_count = stream_align(
+                reads, lens, index, ref_seqs, ref_lens, tables, cfg,
+                mesh=mesh, col_maps=col_maps, device=device,
+                ring_shards=ring_shards)
+            if (mesh is not None and counts is not None
+                    and cfg.shard_positions):
+                from rambl_tpu_torch.parallel.mesh import put_replicated
 
-        # the cluster step and aux need whole rows: gather them once
-        counts = put_replicated(_whole_rows(counts, cfg, mesh), mesh)
-    aligned = int((_replica(rec["bins"], mesh) >= 0).sum())
-    node2slot = None
-    if counts is None:
-        # slot-compacted active-node mode (n_nodes > cfg.pileup_slot_nodes):
-        # active leaves chosen by chain read count, slots for nodes on their
-        # ancestor chains that hold reads; one scatter pass builds the
-        # compacted accumulators
-        leaves, node2slot, n_slots = _active_leaves(
-            to_host(_replica(read_count, mesh)), tables, cfg)
-        if leaves.size == 0:
-            return [], dict(round=round_idx, aligned=aligned, n_leaves=0,
-                            genes=0)
-        if mesh is None:
-            counts, span_diff = node_slot_pileup(
-                rec["query"], rec["ref_col"], rec["bins"],
-                torch.from_numpy(node2slot).to(device), n_slots,
-                ref_seqs.shape[1])
+                # the cluster step and aux need whole rows: gather them once
+                counts = put_replicated(_whole_rows(counts, cfg, mesh), mesh)
+            aligned = int((_replica(rec["bins"], mesh) >= 0).sum())
+        node2slot = None
+        if counts is None:
+            # slot-compacted active-node mode (n_nodes >
+            # cfg.pileup_slot_nodes): active leaves chosen by chain read
+            # count, slots for nodes on their ancestor chains that hold
+            # reads; one scatter pass builds the compacted accumulators
+            with stages("round.slot_pileup", "slot_pileup"):
+                leaves, node2slot, n_slots = _active_leaves(
+                    to_host(_replica(read_count, mesh)), tables, cfg)
+                if leaves.size == 0:
+                    return [], dict(round=round_idx, aligned=aligned,
+                                    n_leaves=0, genes=0)
+                counts, span_diff = _slot_pileup(rec, node2slot, n_slots,
+                                                 ref_seqs.shape[1], device,
+                                                 mesh)
+            if aux_out is not None:
+                aux_out["slot_counts"] = (_replica(counts, mesh), node2slot)
         else:
-            from rambl_tpu_torch.parallel.mesh import put_replicated
-            from rambl_tpu_torch.parallel.steps import make_slot_pileup_step
-
-            counts, span_diff = make_slot_pileup_step(
-                mesh, n_slots, ref_seqs.shape[1])(
-                    rec["query"], rec["ref_col"], rec["bins_sh"],
-                    put_replicated(node2slot, mesh))
-        if aux_out is not None:
-            aux_out["slot_counts"] = (_replica(counts, mesh), node2slot)
-        clock.mark("slot_pileup", counts)
-    else:
-        leaves = np.unique(tables.ref_taxon)
-        if aux_out is not None:
-            aux_out["node_counts"] = _replica(counts, mesh)
-    cons, kact, n_mem, mh = cluster_stage(
-        rec, counts, span_diff, read_count, leaves, tables, cfg, node2slot,
-        mesh=mesh)
-    clock.mark("cluster")
-    genes = _genes_from_consensus(
-        cons.called, cons.emit, cons.n_reads, kact, leaves, n_mem, cfg,
-        round_idx, orig_taxon_of_node, mh=mh,
-    )
-    stats = dict(round=round_idx, aligned=aligned,
-                 n_leaves=int(leaves.size), genes=0)
-    genes = _dedupe_cap(genes, cfg)
-    stats["genes"] = len(genes)
-    clock.mark("genes_host")
-    clock.into(stats)
+            leaves = np.unique(tables.ref_taxon)
+            if aux_out is not None:
+                aux_out["node_counts"] = _replica(counts, mesh)
+        with stages("round.cluster", "cluster"):
+            cons, kact, n_mem, mh = cluster_stage(
+                rec, counts, span_diff, read_count, leaves, tables, cfg,
+                node2slot, mesh=mesh)
+        with stages("round.genes", "genes_host"):
+            genes = _genes_from_consensus(
+                cons.called, cons.emit, cons.n_reads, kact, leaves, n_mem,
+                cfg, round_idx, orig_taxon_of_node, mh=mh,
+            )
+            stats = dict(round=round_idx, aligned=aligned,
+                         n_leaves=int(leaves.size), genes=0)
+            genes = _dedupe_cap(genes, cfg)
+            stats["genes"] = len(genes)
+        stages.into(stats)
     return genes, stats
+
+
+def _slot_pileup(rec, node2slot, n_slots: int, ref_len: int, device, mesh):
+    """Round 0's slot accumulators (counts, span_diff) of the stream's
+    retention over `node2slot`, on `device` or on `mesh`'s ranks."""
+    if mesh is None:
+        return node_slot_pileup(
+            rec["query"], rec["ref_col"], rec["bins"],
+            torch.from_numpy(node2slot).to(device), n_slots, ref_len)
+    from rambl_tpu_torch.parallel.mesh import put_replicated
+    from rambl_tpu_torch.parallel.steps import make_slot_pileup_step
+
+    return make_slot_pileup_step(mesh, n_slots, ref_len)(
+        rec["query"], rec["ref_col"], rec["bins_sh"],
+        put_replicated(node2slot, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -990,16 +1012,18 @@ def assemble(reads, lens, ref_seqs, ref_lens, tables, cfg: PipelineConfig,
     if aux_out is not None and aux:
         aux_out.update(aux)
     if cfg.polish and genes:
-        t_pol = time.time()
-        genes, n_changed = polish(
-            reads, lens, genes, ref_seqs, ref_lens, tables, cfg,
-            node_counts=(aux or {}).get("node_counts"),
-            slot_counts=(aux or {}).get("slot_counts"),
-            shared_index=shared_index, mesh=mesh, col_maps=col_maps,
-            device=device, ring_shards=ring_shards)
-        pstats = dict(round="polish", changed=n_changed, nw_tier=nw_tier())
-        if _stage_timing():
-            pstats["t_polish"] = round(time.time() - t_pol, 2)
+        cards = mesh.devices if mesh is not None else [device]
+        with trace.Stages(cards) as stages:
+            with stages("polish", "polish"):
+                genes, n_changed = polish(
+                    reads, lens, genes, ref_seqs, ref_lens, tables, cfg,
+                    node_counts=(aux or {}).get("node_counts"),
+                    slot_counts=(aux or {}).get("slot_counts"),
+                    shared_index=shared_index, mesh=mesh, col_maps=col_maps,
+                    device=device, ring_shards=ring_shards)
+            pstats = dict(round="polish", changed=n_changed,
+                          nw_tier=nw_tier())
+            stages.into(pstats)
         round_stats.append(pstats)
     return AssemblyResult(genes=genes, n_rounds=n_rounds,
                           converged=converged, round_stats=round_stats,

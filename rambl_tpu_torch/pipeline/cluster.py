@@ -23,6 +23,7 @@ import torch
 
 from rambl_tpu_torch.config import PipelineConfig
 from rambl_tpu_torch.index.taxonomy import MAX_DEPTH
+from rambl_tpu_torch.utils import trace
 
 _BIG = 1 << 30
 
@@ -155,7 +156,17 @@ def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
     converged (no host read per iteration). torch.argmax/argmin return the
     first index on ties, as the oracle's do; bool rows are cast first (a row
     with no True gives 0). The (NL, M, K, P) and (NL, dp_spawn_scan, M, P)
-    bool temporaries bound a block's memory (cfg.cluster_leaf_block)."""
+    bool temporaries bound a block's memory (cfg.cluster_leaf_block).
+
+    While the recorder (`utils.trace`) is on, the block's wasted work is
+    counted: `dp.recount_adds` (the center recount's atomic adds, NL * M * P
+    an iteration) and `dp.recount_inert_adds` (those sent to its one inert
+    slot: uncovered columns and invalid member rows), `dp.leaf_iters` and
+    `dp.frozen_leaf_iters` (leaf iterations run after the leaf converged),
+    `dp.block_iters` and `dp.tail_iters` (iterations run after every leaf
+    converged). Each leaf's convergence iteration is kept on the device;
+    the counts are read with the block's outputs. The results are the same
+    with the recorder on or off."""
     NL, M, P = feat.shape
     K = cfg.max_clusters_per_bin
     S = cfg.dp_spawn_scan
@@ -185,8 +196,13 @@ def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
     pcol = torch.arange(P, device=dev)
     fbase = torch.where(feat >= 0, feat.long(), 0)
     fslot_base = pcol * 4 + fbase                           # (NL, M, P)
+    iters = cfg.dp_max_iters
+    counting = trace.on()
+    if counting:
+        # the iterations each leaf ran until it converged
+        conv = torch.full((NL,), iters, dtype=i32, device=dev)
 
-    for _ in range(cfg.dp_max_iters):
+    for it in range(iters):
         eq = feat[:, :, None, :] == centers[:, None, :, :]  # (NL, M, K, P)
         diff = ((~eq) & cov[:, :, None, :]).sum(dim=3, dtype=i32)
         diff = torch.where(kk[None, None, :] < kact[:, None, None], diff, _BIG)
@@ -240,7 +256,17 @@ def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
         centers = torch.where(done[:, None, None], centers, cen_new)
         assign = torch.where(done[:, None], assign, new_assign)
         kact = torch.where(done, kact, kact_new)
+        if counting:
+            conv = torch.where(done | changed, conv, it + 1)
         done = done | ~changed
+
+    if counting:
+        trace.count("dp.block_iters", iters)
+        trace.count("dp.leaf_iters", NL * iters)
+        trace.count("dp.recount_adds", NL * M * P * iters)
+        trace.count("dp.recount_inert_adds", (~cov).sum() * iters)
+        trace.count("dp.frozen_leaf_iters", (iters - conv).sum())
+        trace.count("dp.tail_iters", iters - conv.max() if NL else iters)
 
     # merge identical active centers, compact ids in first-seen order
     same = (centers[:, :, None, :] == centers[:, None, :, :]).all(dim=3)

@@ -1,6 +1,6 @@
 """What every runner of the scale ladder (`run_config2` .. `run_config5`)
 records of an assembly beyond the reference scripts' lines: per round its
-`_StageClock` stages (when RAMBL_STAGE_TIMING=1), the col maps' build time,
+stage spans (when RAMBL_STAGE_TIMING=1), the col maps' build time,
 K1 and K2 + K3 launches, peak device memory and what is allocated at its
 start; and the launches of polish. Every such line ends with the card's
 name and power limit.
