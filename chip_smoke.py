@@ -25,7 +25,10 @@ code is non-zero and no result line is printed:
    multiple of a block's pairs, none) and on adversarial pairs, against the
    twin, its 16-bit plain version and the oracle; K2 + K3 (score, end cell,
    ref_col and its optional direction bytes) also at 8 and 128 rows, at 200
-   rows (8 rows a lane) and at ragged batch sizes;
+   rows (8 rows a lane) and at ragged batch sizes; DP-means' center recount
+   (`ops.cluster_cuda`) against its plain version at a cluster block of
+   config 3 (512 leaves x 4,096 members x 64 columns, K 16), covered as the
+   cluster cell's blocks are and fully covered, timed beside it;
 4. slice: `stream_align` over BASELINE config 2 (the "small" preset: 20
    species x 5 strains, 1,000,000 reads of 100 bp, batch 8192, sw_rows 104),
    with random data from a seed, every tensor on cuda:0;
@@ -94,8 +97,9 @@ code is non-zero and no result line is printed:
    at full width (max_assembly_iters 5, polish on): rounds, genes,
    full-length genes, wall and genes/hour; per round its stage spans,
    the col maps' build, K1 and K2 + K3 launches (> 0 in every
-   round, 0 in polish), peak device memory and what is allocated at its
-   start (which must not climb). (c) The same run killed after round 1
+   round, 0 in polish; the recount's, dp_max_iters a cluster block), peak
+   device memory and what is allocated at its start (which must not
+   climb). (c) The same run killed after round 1
    (a wrapped `assemble_round` raises) resumes from its checkpoint and
    `.aux` sidecar to (b)'s genes bit for bit; a sidecar under another
    config raises. (d) scripts/quality_bench.py's four scenarios: recovered
@@ -172,7 +176,8 @@ code is non-zero and no result line is printed:
    is fixable, and there are C4_RESIDUAL of them.
 
 The second-to-last lines are the kernel table as JSON (time, launches on the
-main path (for K1 and K2 + K3 the whole assembly of phase 13 (b)), error
+main path (for K1, K2 + K3 and the recount the whole assembly of phase 13
+(b)), error
 against the plain version, and the bound: the larger of the
 bytes over 3.35 TB/s and the integer operations over 132 SMs x 64 INT32
 lanes x the card's max SM clock) and the card's name and power limit from
@@ -257,7 +262,7 @@ def ptxas_report(lines):
     name = spill = None
     for ln in lines:
         m = re.search(r"Compiling entry function '\S*?\d+"
-                      r"((?:sw|ring)_[a-z_]+_kernel)(\S*)'", ln)
+                      r"((?:sw|ring|dp)_[a-z_]+_kernel)(\S*)'", ln)
         if m:
             rest = m.group(2)
             args = ",".join(template_args(rest) if rest[:1] == "I" else [])
@@ -310,6 +315,65 @@ def max_abs_err(got, ref) -> int:
         if g.numel():
             err = max(err, int((g.long() - r.long()).abs().max()))
     return err
+
+
+#: a cluster block of config 3's round 0: leaves x members x columns, K
+RECOUNT_SHAPE = (512, 4096, 64, 16)
+#: the covered share of such a block's (leaf, member, column) entries: 18.2 M
+#: of 40.59 G recount entries in a traced window of the cluster cell
+RECOUNT_COVER = 0.00045
+
+
+def recount_inputs(dev, seed: int, cover: float):
+    """DP-means' recount inputs at RECOUNT_SHAPE on the card, each entry
+    covered with probability `cover`: (feat, assign, fallback, kact), K."""
+    NL, M, P, K = RECOUNT_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randint(0, 4, (NL, M, P), generator=g, device=dev,
+                         dtype=torch.int8)
+    covered = torch.rand((NL, M, P), generator=g, device=dev) < cover
+    feat = torch.where(covered, base, -1).to(torch.int8)
+    kact = torch.randint(1, K + 1, (NL,), generator=g, device=dev,
+                         dtype=torch.int32)
+    assign = (torch.randint(0, 1 << 20, (NL, M), generator=g, device=dev)
+              % kact[:, None]).to(torch.int32)
+    fallback = torch.randint(0, 4, (NL, P), generator=g, device=dev,
+                             dtype=torch.int8)
+    return (feat, assign, fallback, kact), K
+
+
+def phase_recount(dev):
+    """Phase 3's recount: `ops.cluster_cuda.dp_recount_centers` against its
+    plain version (`pipeline.cluster.recount_centers`, on the same card
+    tensors) at RECOUNT_SHAPE, bit for bit, on a block covered as the cluster
+    cell's are and on a fully covered one; then, on the first, the kernel's
+    device time (torch.profiler), the plain version's (CUDA events) and the
+    bytes a recount must move. -> dict(ms, plain_ms, nbytes, err,
+    launches)."""
+    from rambl_tpu_torch.ops import cluster_cuda
+    from rambl_tpu_torch.pipeline import cluster as tcluster
+    from rambl_tpu_torch.utils.timing import cuda_time, kernel_ms
+
+    err = 0
+    cluster_cuda.reset_launches()
+    for seed, cover in ((31, RECOUNT_COVER), (32, 1.0)):
+        args, K = recount_inputs(dev, seed, cover)
+        got = cluster_cuda.dp_recount_centers(*args, K)
+        torch.cuda.synchronize()
+        err = max(err, require_equal(f"recount cover={cover}", [got],
+                                     [tcluster.recount_centers(*args, K)]))
+    launches = cluster_cuda.LAUNCHES["recount"]
+    if launches != 2:
+        raise AssertionError(f"the recount launched {launches} times, not 2")
+    args, K = recount_inputs(dev, 31, RECOUNT_COVER)
+    ms = kernel_ms(cluster_cuda.dp_recount_centers, *args, K,
+                   kernel="dp_recount_kernel")
+    plain_ms = cuda_time(tcluster.recount_centers, *args, K, iters=5)
+    NL, M, P, _ = RECOUNT_SHAPE
+    # feat and assign read once, fallback and kact once, the centers written
+    nbytes = NL * M * P + 4 * NL * M + NL * P + 4 * NL + NL * K * P
+    return dict(ms=ms, plain_ms=plain_ms, nbytes=nbytes, err=err,
+                launches=launches)
 
 
 def stream_syncs(run_stream, n_batches: int):
@@ -627,7 +691,7 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     from rambl_tpu_torch.io.fasta import read_fasta, write_fasta
     from rambl_tpu_torch.io.loader import load_fastq_codes
     from rambl_tpu_torch.io.pack import encode_batch
-    from rambl_tpu_torch.ops import sw_cuda
+    from rambl_tpu_torch.ops import cluster_cuda, sw_cuda
     from rambl_tpu_torch.pipeline import assemble as tassemble
     from rambl_tpu_torch.scripts.ladder import RoundRecorder
     from rambl_tpu_torch.utils.checkpoint import (
@@ -667,6 +731,7 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     os.environ["RAMBL_STAGE_TIMING"] = "1"
     try:
         sw_cuda.reset_launches()
+        cluster_cuda.reset_launches()
         with RoundRecorder(dev) as recorder:
             t0 = time.perf_counter()
             res = tassemble.assemble(
@@ -677,6 +742,10 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
     finally:
         del os.environ["RAMBL_STAGE_TIMING"]
     total = recorder.total
+    recount_n = cluster_cuda.LAUNCHES["recount"]
+    if not recount_n or recount_n % cfg.dp_max_iters:
+        raise AssertionError(f"DP-means' recount launched {recount_n} times, "
+                             f"not {cfg.dp_max_iters} a cluster block")
     if len(recorder.rounds) != res.n_rounds:
         raise AssertionError(f"{len(recorder.rounds)} rounds recorded, "
                              f"{res.n_rounds} reported")
@@ -825,7 +894,8 @@ def phase_assembly(dev, ds, tables, cfg, card, oracles):
         f"equals the one written from the in-process genes [{card}]")
     with open(gene_fa) as f:
         cli_fasta = f.read()
-    return dict(launches={"score": total["score"], "align": total["align"]},
+    return dict(launches={"score": total["score"], "align": total["align"],
+                          "recount": recount_n},
                 parity=parity, parity_oracle=parity_oracle,
                 rounds=recorder.rounds, cohort=got, cohort_in=(co, co_tax),
                 cli_argv=cli_argv, cli_fasta=cli_fasta, tmp=tmp)
@@ -1732,13 +1802,14 @@ def main() -> None:
             kernel_regs[name] = int(re.search(r"(\d+) registers",
                                               regs).group(1))
             if (name.startswith(("sw_score_kernel", "ring_copy_kernel",
-                                 "sw_align_traceback_kernel"))
+                                 "sw_align_traceback_kernel",
+                                 "dp_recount_kernel"))
                     and "0 bytes spill stores, 0 bytes spill loads"
                     not in (spill or "")):
                 raise AssertionError(f"{name} spills: {spill}")
     from rambl_tpu_torch.ops import sw_variants as sv
 
-    for name in ("sw_score_kernel", "ring_copy_kernel",
+    for name in ("sw_score_kernel", "ring_copy_kernel", "dp_recount_kernel",
                  "sw_align_traceback_kernel<4>",
                  "sw_align_traceback_kernel<8>",
                  sv.S2_VARIANT.kernel("S2Load", "RawKeyOut"),
@@ -1843,13 +1914,19 @@ def main() -> None:
     np.testing.assert_array_equal(traceback_batch(odirs, oie, oje, L),
                                   rco.cpu().numpy())
     torch.cuda.synchronize()
+    recount = phase_recount(dev)
     say(f"[3 kernels] K1 on {PAIRS} planted pairs at rows 0 and {ROWS} and "
         f"on {PAIRS} reads of <= {ROWS} bases at rows {ROWS}, on batches of "
         f"{ragged} and 0 pairs and on 160 adversarial pairs (also against its "
         f"16-bit plain version); K2+K3 on 4224 gapped/all-N pairs at rows "
         f"{ROWS}, 8 and {L}, on 1024 at L={L8} and on batches of {ragged_tb} "
         f"pairs (score, end cell, ref_col and the optional dirs): equal to "
-        f"the twins bit for bit; 256 pairs each equal to the NumPy oracle")
+        f"the twins bit for bit; 256 pairs each equal to the NumPy oracle; "
+        f"DP-means' recount at {RECOUNT_SHAPE} (leaves, members, columns, K),"
+        f" {RECOUNT_COVER:.3%} and 100% covered, equal to its plain version: "
+        f"{recount['ms']:.4f} ms on the card, plain "
+        f"{recount['plain_ms']:.3f} ms, bound "
+        f"{recount['nbytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) [{card}]")
 
     # ---- 4. the slice: stream_align over config 2 --------------------------
     from rambl_tpu_torch.data.simulate import simulate_dataset
@@ -2562,6 +2639,8 @@ def main() -> None:
                     4 * P2 * (L2 + W2 + 1), peak),
         # every shard word read once and written once; no arithmetic
         "K4": bound(0, 2 * shard_bytes, peak),
+        # feat read once; an add a covered entry, far below the bytes' time
+        "recount": bound(0, recount["nbytes"], peak),
     }
     say(f"[8 bench path] bounds at {peak / 1e12:.2f} T INT32 op/s and "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {OPS_PER_CELL} operations a cell "
@@ -2611,6 +2690,11 @@ def main() -> None:
                "rambl_tpu/parallel/ring_dma.py:63", mesh_launches["ring"],
                err["ring"], k4["dma"], k4["ppermute"], "K4"),
          "library_ms": k4["copy_"]},
+        row("dp_recount (DP-means' center recount)",
+            "rambl_tpu_torch/csrc/cluster.cu",
+            "none (rambl_tpu/pipeline/cluster.py:311-319 is a jnp.einsum)",
+            asm_launches["recount"], recount["err"], recount["ms"],
+            recount["plain_ms"], "recount"),
     ]
     for k in kernels:
         if k["ms"] < k["bound_ms"]:

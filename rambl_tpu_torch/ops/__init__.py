@@ -1,5 +1,6 @@
 """Device ops of the port: plain PyTorch twins (`sw`, `seed`) and the
-hand-written CUDA kernels with their wrappers (`sw_cuda`, `sw_variants`).
+hand-written CUDA kernels with their wrappers (`sw_cuda`, `sw_variants`,
+`cluster_cuda`).
 `seed_candidates` is the counterpart of the reference's
 `seed_candidates_jax`."""
 

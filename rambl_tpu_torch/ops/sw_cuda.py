@@ -26,7 +26,8 @@ The kernels themselves are held against the twins on a card by
 `python3 chip_smoke.py`, both from the repository root.
 
 The library is built from every source in `csrc/` (these kernels, those
-of `ops.sw_variants` and K4 of `parallel.ring_dma`) with nvcc for sm_90a at
+of `ops.sw_variants`, K4 of `parallel.ring_dma` and DP-means' recount of
+`ops.cluster_cuda`) with nvcc for sm_90a at
 first use into `_build/` (ignored by git) and rebuilt when the sources or
 flags change. The C entry points take plain pointers and the stream, loaded
 with ctypes.
@@ -153,11 +154,13 @@ def load_library() -> ctypes.CDLL:
             lib.rambl_ring_enable_peer.argtypes = [I, I]
             lib.rambl_ring_layout.argtypes = [P, P, P]
             lib.rambl_ring_layout.restype = None
+            # DP-means' recount (csrc/cluster.cu, wrapped by ops.cluster_cuda)
+            lib.rambl_dp_recount.argtypes = [P] * 5 + [I] * 4 + [P]
             for fn in (lib.rambl_sw_score, lib.rambl_sw_align,
                        lib.rambl_sw_strip_score,
                        lib.rambl_sw_pretransposed, lib.rambl_ring_copy,
                        lib.rambl_ring_wait, lib.rambl_ring_barrier,
-                       lib.rambl_ring_enable_peer):
+                       lib.rambl_ring_enable_peer, lib.rambl_dp_recount):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib

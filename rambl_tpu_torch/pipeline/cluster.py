@@ -23,6 +23,7 @@ import torch
 
 from rambl_tpu_torch.config import PipelineConfig
 from rambl_tpu_torch.index.taxonomy import MAX_DEPTH
+from rambl_tpu_torch.ops import cluster_cuda
 from rambl_tpu_torch.utils import trace
 
 _BIG = 1 << 30
@@ -146,6 +147,41 @@ def _consensus_counts(feat: torch.Tensor) -> torch.Tensor:
     return (feat[..., None] == b).sum(dim=-3, dtype=torch.int32)
 
 
+def recount_centers(feat: torch.Tensor, assign: torch.Tensor,
+                    fallback: torch.Tensor, kact: torch.Tensor,
+                    K: int) -> torch.Tensor:
+    """DP-means' center recount, the plain version of
+    `ops.cluster_cuda.dp_recount_centers` (which runs it on CPU tensors):
+    feat (NL, M, P) int8 (-1 = uncovered), assign (NL, M) int32 in [0, K),
+    fallback (NL, P) int8, kact (NL,) int32 -> centers (NL, K, P) int8, each
+    (k, p) the base most members of cluster k carry at column p (ties to the
+    lowest base), fallback[p] where none covers it, 0 for k >= kact.
+
+    Integer counts per (leaf, cluster, column, base) by one `index_add_` of
+    every entry; a member's uncovered columns go to one inert slot at the
+    end."""
+    NL, M, P = feat.shape
+    dev = feat.device
+    i32 = torch.int32
+    rows = torch.arange(NL, device=dev)
+    kk = torch.arange(K, dtype=i32, device=dev)
+    n_cnt = NL * K * P * 4
+    pcol = torch.arange(P, device=dev)
+    fbase = torch.where(feat >= 0, feat.long(), 0)
+    fslot_base = pcol * 4 + fbase                           # (NL, M, P)
+    flat = ((rows[:, None, None] * K + assign[:, :, None].long())
+            * (P * 4) + fslot_base)
+    flat = torch.where(feat >= 0, flat, n_cnt).reshape(-1)
+    cnt = torch.zeros((n_cnt + 1,), dtype=i32, device=dev)
+    cnt.index_add_(0, flat, torch.ones_like(flat, dtype=i32))
+    cnt = cnt[:-1].reshape(NL, K, P, 4)
+    has = cnt.sum(dim=3) > 0
+    cen = torch.where(has, torch.argmax(cnt, dim=3),
+                      fallback[:, None, :].long()).to(torch.int8)
+    return torch.where(kk[None, :, None] < kact[:, None, None],
+                       cen, 0).to(torch.int8)
+
+
 def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
                     cfg: PipelineConfig) -> DPMeansOut:
     """DP-means for every leaf of a block at once. feat (NL, M, P) int8 (-1 =
@@ -159,9 +195,9 @@ def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
     bool temporaries bound a block's memory (cfg.cluster_leaf_block).
 
     While the recorder (`utils.trace`) is on, the block's wasted work is
-    counted: `dp.recount_adds` (the center recount's atomic adds, NL * M * P
-    an iteration) and `dp.recount_inert_adds` (those sent to its one inert
-    slot: uncovered columns and invalid member rows), `dp.leaf_iters` and
+    counted: `dp.recount_adds` (the center recount's adds as its path issues
+    them, `ops.cluster_cuda.recount_adds`) and `dp.recount_inert_adds`
+    (those that count nothing), `dp.leaf_iters` and
     `dp.frozen_leaf_iters` (leaf iterations run after the leaf converged),
     `dp.block_iters` and `dp.tail_iters` (iterations run after every leaf
     converged). Each leaf's convergence iteration is kept on the device;
@@ -190,12 +226,6 @@ def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
     assign = torch.zeros((NL, M), dtype=i32, device=dev)
     kact = torch.ones((NL,), dtype=i32, device=dev)
     done = torch.zeros((NL,), dtype=torch.bool, device=dev)
-    # flat (leaf, cluster, column, base) slots of the center counts; a
-    # member's uncovered columns go to the one inert slot at the end
-    n_cnt = NL * K * P * 4
-    pcol = torch.arange(P, device=dev)
-    fbase = torch.where(feat >= 0, feat.long(), 0)
-    fslot_base = pcol * 4 + fbase                           # (NL, M, P)
     iters = cfg.dp_max_iters
     counting = trace.on()
     if counting:
@@ -238,18 +268,8 @@ def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
         new_assign = torch.where(any_good[:, None], na, new_assign)
         kact_new = kact + any_good.to(i32)
 
-        # recompute centers: integer counts per (k, p, base)
-        flat = ((rows[:, None, None] * K + new_assign[:, :, None].long())
-                * (P * 4) + fslot_base)
-        flat = torch.where(feat >= 0, flat, n_cnt).reshape(-1)
-        cnt = torch.zeros((n_cnt + 1,), dtype=i32, device=dev)
-        cnt.index_add_(0, flat, torch.ones_like(flat, dtype=i32))
-        cnt = cnt[:-1].reshape(NL, K, P, 4)
-        has = cnt.sum(dim=3) > 0
-        cen_new = torch.where(has, torch.argmax(cnt, dim=3),
-                              fallback[:, None, :].long()).to(torch.int8)
-        cen_new = torch.where(kk[None, :, None] < kact_new[:, None, None],
-                              cen_new, 0).to(torch.int8)
+        cen_new = cluster_cuda.dp_recount_centers(feat, new_assign, fallback,
+                                                  kact_new, K)
         changed = (new_assign != assign).any(dim=1) | any_good
 
         # converged leaves keep their state
@@ -263,8 +283,9 @@ def dp_means_leaves(feat: torch.Tensor, can_seed: torch.Tensor,
     if counting:
         trace.count("dp.block_iters", iters)
         trace.count("dp.leaf_iters", NL * iters)
-        trace.count("dp.recount_adds", NL * M * P * iters)
-        trace.count("dp.recount_inert_adds", (~cov).sum() * iters)
+        adds, inert = cluster_cuda.recount_adds(feat, cov)
+        trace.count("dp.recount_adds", adds * iters)
+        trace.count("dp.recount_inert_adds", inert * iters)
         trace.count("dp.frozen_leaf_iters", (iters - conv).sum())
         trace.count("dp.tail_iters", iters - conv.max() if NL else iters)
 

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels == their plain PyTorch versions, on the
 card: K1 and the fused K2 + K3 (`ops.sw_cuda`), the bench kernels S1 (every
-variant) and S2 (`ops.sw_variants`), and K4, the ring rotation
-(`parallel.ring_dma`), on virtual ranks of one card.
+variant) and S2 (`ops.sw_variants`), K4, the ring rotation
+(`parallel.ring_dma`), on virtual ranks of one card, and DP-means' center
+recount (`ops.cluster_cuda`).
 
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test here skips with a reason
 elsewhere. The file imports no jax, so it also runs on a machine without it:
@@ -509,6 +510,127 @@ def test_mesh_stream_with_k4_matches_single_device(dev):
 
 
 # ---------------------------------------------------------------------------
+# DP-means' center recount (`ops.cluster_cuda`) against its plain version,
+# `pipeline.cluster.recount_centers`, run on the same card tensors.
+# ---------------------------------------------------------------------------
+
+def _recount_case(name):
+    """(feat, assign, fallback, kact, K) as numpy arrays."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    NL, M, P, K = {"cell": (512, 4096, 64, 16), "dense": (4, 4096, 64, 16),
+                   "ties": (8, 256, 64, 8), "empty": (16, 512, 64, 16),
+                   "ragged": (1, 29, 37, 5), "unaligned": (5, 29, 37, 5)}[name]
+    cover = {"cell": 0.002, "dense": 1.0}.get(name, 0.6)
+    feat = np.where(rng.integers(0, 10_000, (NL, M, P), dtype=np.int16)
+                    < cover * 10_000,
+                    rng.integers(0, 4, (NL, M, P), dtype=np.int8),
+                    np.int8(-1)).astype(np.int8)
+    kact = rng.integers(1, K + 1, NL).astype(np.int32)
+    assign = (rng.integers(0, 1 << 20, (NL, M))
+              % kact[:, None]).astype(np.int32)
+    if name == "cell":
+        feat[:, M // 2:] = -1                      # padded member rows
+    if name == "dense":                            # counts up to M on a word
+        feat[0], assign[0], kact[0] = 2, 0, K
+        assign[1] = 0
+    if name == "ties":                             # two bases tie everywhere
+        hi, lo = rng.integers(2, 4, (NL, 1, P)), rng.integers(0, 2, (NL, 1, P))
+        feat = np.where(np.arange(M)[None, :, None] % 2, hi,
+                        lo).astype(np.int8)
+        assign = np.repeat(assign[:, ::2], 2, axis=1)
+    if name == "empty":                            # clusters with no member
+        assign = np.minimum(assign, 2).astype(np.int32)
+        feat[:, :, P // 2:] = -1                   # columns no member covers
+        kact[:4] = 1
+    fallback = rng.integers(0, 4, (NL, P)).astype(np.int8)
+    return feat, assign, fallback, kact, K
+
+
+@pytest.mark.parametrize("name", ["cell", "dense", "ties", "empty", "ragged",
+                                  "unaligned"])
+def test_recount_kernel_matches_twin(dev, name):
+    from rambl_tpu_torch.ops import cluster_cuda
+    from rambl_tpu_torch.pipeline import cluster as tc
+
+    feat, assign, fallback, kact, K = _recount_case(name)
+    args = _on(dev, feat, assign, fallback, kact)
+    if name == "unaligned":                        # leaves off 16-byte bounds
+        buf = torch.zeros(feat.size + 21, dtype=torch.int8, device=dev)
+        args[0] = buf[5:5 + feat.size].view(feat.shape)
+        args[0].copy_(torch.from_numpy(feat))
+        assert args[0].data_ptr() % 16
+    before = cluster_cuda.LAUNCHES["recount"]
+    got = cluster_cuda.dp_recount_centers(*args, K)
+    torch.cuda.synchronize()
+    assert cluster_cuda.LAUNCHES["recount"] == before + 1
+    _equal([got], [tc.recount_centers(*args, K)])
+    if name == "dense":
+        assert (got[0, 0] == 2).all()
+
+
+def test_recount_kernel_rejects_bad_inputs(dev):
+    from rambl_tpu_torch.ops import cluster_cuda
+
+    feat, assign, fallback, kact, K = _recount_case("ragged")
+    args = _on(dev, feat, assign, fallback, kact)
+    before = cluster_cuda.LAUNCHES["recount"]
+    with pytest.raises(ValueError, match="shared memory"):
+        cluster_cuda.dp_recount_centers(*args, cluster_cuda.MAX_SMEM // 37)
+    with pytest.raises(ValueError, match="assign"):
+        cluster_cuda.dp_recount_centers(args[0], args[1].long(), *args[2:], K)
+    with pytest.raises(ValueError, match="feat"):
+        cluster_cuda.dp_recount_centers(args[0].transpose(1, 2).contiguous()
+                                        .transpose(1, 2), *args[1:], K)
+    assert cluster_cuda.LAUNCHES["recount"] == before
+
+
+def _dp_leaves(seed, NL=12, M=256, P=32):
+    """feat (NL, M, P) int8 of 1-4 haplotypes a leaf, read-like covered runs
+    and 8 padded rows; can_seed (NL, M) bool."""
+    rng = np.random.default_rng(seed)
+    feat = np.full((NL, M, P), -1, np.int8)
+    for a in range(NL):
+        haps = rng.integers(0, 4, (1 + a % 4, P))
+        if a == 0:                                       # ties everywhere
+            haps = np.stack([np.zeros(P, int), np.ones(P, int)])
+        for m in range(M - 8):
+            lo = int(rng.integers(0, P - 4))
+            hi = int(rng.integers(lo + 4, P + 1))
+            row = haps[m % len(haps)].copy()
+            row[rng.random(P) < 0.02] = rng.integers(0, 4)
+            feat[a, m, lo:hi] = row[lo:hi]
+    can_seed = rng.random((NL, M)) < 0.7
+    can_seed[-1] = False
+    return feat, can_seed
+
+
+def test_dp_means_counts_the_kernels_adds(dev, monkeypatch):
+    from rambl_tpu_torch.config import PipelineConfig
+    from rambl_tpu_torch.ops import cluster_cuda
+    from rambl_tpu_torch.pipeline import cluster as tc
+    from rambl_tpu_torch.utils import trace
+
+    feat, can_seed = _dp_leaves(51)
+    cfg = PipelineConfig(max_clusters_per_bin=4, dp_spawn_min_orphans=2)
+    iters = cfg.dp_max_iters
+    monkeypatch.setenv("RAMBL_STAGE_TIMING", "1")
+    trace.clear()
+    before = cluster_cuda.LAUNCHES["recount"]
+    try:
+        with trace.Stages():
+            gpu = tc.dp_means_leaves(*_on(dev, feat, can_seed), cfg)
+        got = {n: v for n, _, v, _ in trace.counts()}
+    finally:
+        trace.clear()
+    assert cluster_cuda.LAUNCHES["recount"] == before + iters
+    assert got["dp.recount_adds"] == int((feat >= 0).sum()) * iters
+    assert got["dp.recount_inert_adds"] == 0
+    _equal(gpu, tc.dp_means_leaves(torch.from_numpy(feat),
+                                   torch.from_numpy(can_seed), cfg))
+    assert int(gpu.kact.max()) >= 2
+
+
+# ---------------------------------------------------------------------------
 # round 0 on the card: pileup merge, clustering, consensus, the round itself.
 # These are plain PyTorch (no hand-written kernel); each is held against the
 # same function on CPU tensors, which the CPU tests hold against the JAX
@@ -595,21 +717,7 @@ def test_round_dp_means_on_card(dev):
     from rambl_tpu_torch.config import PipelineConfig
     from rambl_tpu_torch.pipeline import cluster as tc
 
-    rng = np.random.default_rng(50)
-    NL, M, P = 12, 256, 32
-    feat = np.full((NL, M, P), -1, np.int8)
-    for a in range(NL):
-        haps = rng.integers(0, 4, (1 + a % 4, P))
-        if a == 0:                                       # ties everywhere
-            haps = np.stack([np.zeros(P, int), np.ones(P, int)])
-        for m in range(M - 8):
-            lo = int(rng.integers(0, P - 4))
-            hi = int(rng.integers(lo + 4, P + 1))
-            row = haps[m % len(haps)].copy()
-            row[rng.random(P) < 0.02] = rng.integers(0, 4)
-            feat[a, m, lo:hi] = row[lo:hi]
-    can_seed = rng.random((NL, M)) < 0.7
-    can_seed[-1] = False
+    feat, can_seed = _dp_leaves(50)
     for fields in ({}, dict(max_clusters_per_bin=4, dp_spawn_min_orphans=2)):
         cpu, gpu = _both(dev, tc.dp_means_leaves, feat, can_seed,
                          cfg=PipelineConfig(**fields))
