@@ -1,16 +1,23 @@
-"""The general runners of the benchmark's traffic kinds. A traffic file
-names its kind; everything that differs between cells (the deployment's
-sizes and settings, how much is checked) is data in the configuration and
-traffic files.
+"""The `Context` a traffic kind's runner takes, and the runners of the
+first two kinds. A traffic file names its kind, and `kinds/<kind>.py`
+exports the kind's runner as `Cell` (`spec.runner`); everything that
+differs between cells (the deployment's sizes and settings, how much is
+checked) is data in the configuration and traffic files.
 
-- `stream`: whole passes of `stream_align` over the sample's reads against
-  the deployment's prebuilt index and column maps, back to back. The work
-  is the reads streamed.
-- `cluster`: round 0's prelude as `assemble_round` runs it (the stream,
-  the active leaves, the slot pileups), then `cluster_stage` on round 0's
-  blocks of leaves with reads of their own (DP-means' path) one at a time,
-  in an order drawn from the seed, wrapping. The work is the leaves
-  clustered.
+A runner is made from a `Context` and has `setup()`, `window(seconds,
+span) -> work` (whole units of work for at least `seconds`, inside one
+`span()`), `check(control) -> {name: (value, limit)}` and `release()`. It
+works on the context's cards, `ctx.devices` (the cell's `chips` cards;
+`ctx.device` is the first), and `sync(ctx)` waits for all of them.
+
+- `stream` (`StreamCell`): whole passes of `stream_align` over the
+  sample's reads against the deployment's prebuilt index and column maps,
+  back to back, on `ctx.device`. The work is the reads streamed.
+- `cluster` (`ClusterCell`): round 0's prelude as `assemble_round` runs it
+  (the stream, the active leaves, the slot pileups), then `cluster_stage`
+  on round 0's blocks of leaves with reads of their own (DP-means' path)
+  one at a time, in an order drawn from the seed, wrapping. The work is
+  the leaves clustered.
 
 Each runner's check compares the timed path's own outputs with the plain
 reference (`benchmark.reference`) once the window has closed. `control`
@@ -46,6 +53,11 @@ class Context:
     seed: int
     device: torch.device
     log: object = print
+    #: every card of the cell, `device` first; (device,) when not given
+    devices: tuple = ()
+
+    def __post_init__(self):
+        self.devices = tuple(self.devices) or (self.device,)
 
     @property
     def settings(self) -> dict:
@@ -65,9 +77,11 @@ class Context:
         return np.random.default_rng([self.seed, salt])
 
 
-def sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def sync(ctx: Context) -> None:
+    """Wait until every card of the context has finished its work."""
+    for dev in ctx.devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 class StreamCell:
@@ -88,7 +102,7 @@ class StreamCell:
             self.db.ref_seqs, self.db.ref_lens, ctx.config["sample"],
             ctx.seed, ctx.device)
         self.out = self._pass(self.reads, self.lens)
-        sync(ctx.device)
+        sync(ctx)
 
     def setup(self) -> None:
         # the first pass at full size allocates the retention buffers and
@@ -116,7 +130,7 @@ class StreamCell:
                 t1 = time.perf_counter()
                 with record_function("bench.stream_align"):
                     self.out = self._pass(self.reads, self.lens)
-                    sync(self.ctx.device)
+                    sync(self.ctx)
                 passes += 1
                 t2 = time.perf_counter()
                 self.ctx.log(f"pass {passes}: {t2 - t1:.3f} s")
@@ -225,7 +239,7 @@ class ClusterCell(StreamCell):
             raise ValueError("round 0 has no leaf with reads of its own")
         self.done, self.cursor = [], 0
         self._block(self.blocks[0])          # warm the block's shapes
-        sync(ctx.device)
+        sync(ctx)
 
     def _blocks(self, leaves, heavy):
         """The blocks of leaves with reads of their own, as `cluster_stage`
@@ -317,5 +331,3 @@ class ClusterCell(StreamCell):
         self.slot_counts = None
         super().release()
 
-
-KINDS = {"stream": StreamCell, "cluster": ClusterCell}

@@ -3,9 +3,9 @@ traced window, for the per-layer metrics that read them.
 
 The recorder keeps them in memory in the process that ran the window, on
 the clock torch.profiler stamps its events with, so they are cut to the
-window (`w0`, `w1` of the `Trace`) and compared with its device intervals
-(`merged`) as they are. A checkout of the port without the recorder, or a
-window in which it recorded none of a name, reads as None.
+window (`w0`, `w1` of the `Trace`) and compared with each card's device
+intervals (`card_merged`) as they are. A checkout of the port without the
+recorder, or a window in which it recorded none of a name, reads as None.
 """
 
 from __future__ import annotations

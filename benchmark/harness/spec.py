@@ -2,10 +2,11 @@
 
 A cell names a configuration and a traffic mix; the configuration's file is
 `configs/<config>.json` (the path `BENCHMARK.json` gives), the traffic's
-`workloads/<traffic>.json`, and a per-layer metric's reader
-`metrics/<metric>.py`, a module with `read(rec) -> float | None`. Adding a
-cell, a configuration or a metric adds files and entries; no file here
-changes.
+`workloads/<traffic>.json`, the runner of the traffic's `kind`
+`kinds/<kind>.py`, a module with a class `Cell` that takes a
+`cells.Context`, and a per-layer metric's reader `metrics/<metric>.py`, a
+module with `read(rec) -> float | None`. Adding a cell, a configuration, a
+traffic kind or a metric adds files and entries; no file changes.
 """
 
 from __future__ import annotations
@@ -53,14 +54,27 @@ def metric_file(metric: str, bench_dir: str = BENCH_DIR) -> str:
     return os.path.join(bench_dir, "metrics", f"{metric}.py")
 
 
-def reader(metric: str, bench_dir: str = BENCH_DIR):
-    """The `read` function of a per-layer metric's own file."""
-    path = metric_file(metric, bench_dir)
-    mod_name = "benchmark_metric_" + re.sub(r"\W", "_", metric)
-    sp = importlib.util.spec_from_file_location(mod_name, path)
+def kind_file(kind: str, bench_dir: str = BENCH_DIR) -> str:
+    return os.path.join(bench_dir, "kinds", f"{kind}.py")
+
+
+def _module(path: str, prefix: str, name: str):
+    sp = importlib.util.spec_from_file_location(
+        prefix + re.sub(r"\W", "_", name), path)
     mod = importlib.util.module_from_spec(sp)
     sp.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str, bench_dir: str = BENCH_DIR):
+    """The `read` function of a per-layer metric's own file."""
+    return _module(metric_file(metric, bench_dir), "benchmark_metric_",
+                   metric).read
+
+
+def runner(kind: str, bench_dir: str = BENCH_DIR):
+    """The `Cell` class of a traffic kind's own file."""
+    return _module(kind_file(kind, bench_dir), "benchmark_kind_", kind).Cell
 
 
 def metrics_of(spec: dict, cell_name: str) -> list:

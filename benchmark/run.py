@@ -14,6 +14,11 @@ its per-layer metrics, read from torch.profiler over the window.
 narrower integers for the check (the control of the comparison: it must
 come out not correct).
 
+A cell of `chips` cards runs on the first `chips` CUDA cards. Its
+`peak_gb` is the fullest card's peak over the window, `memory_peak_bytes`
+the fullest card's peak with set-up included, and the traced `busy_s` the
+mean of the cards' busy times (`harness/trace.py`).
+
 The run needs a CUDA card (it never falls back to the CPU) and fails when
 any of `jax`, `jaxlib`, `flax` or `rambl_tpu` is loaded once the window
 has closed. Caches (the database, torch extensions, Triton) live under
@@ -89,23 +94,25 @@ def main(argv=None) -> int:
               f"{torch.cuda.is_available()}, {torch.cuda.device_count()} "
               f"visible, {cell['chips']} needed", file=sys.stderr)
         return 3
-    line = run(args, torch.device("cuda", 0))
+    line = run(args, [torch.device("cuda", i)
+                      for i in range(cell["chips"])])
     if line is None:
         return 4
     print(json.dumps(line), flush=True)
     return 0
 
 
-def run(args, dev, root: str = _REPO, log=_log):
-    """Everything of a run after the look for a card, on `dev`: the result
-    line as a dict, or None when a forbidden module was loaded. `root` is
-    the directory that holds BENCHMARK.json and the benchmark's files."""
+def run(args, devs, root: str = _REPO, log=_log):
+    """Everything of a run after the look for a card, on `devs` (the cell's
+    cards, or one device): the result line as a dict, or None when a
+    forbidden module was loaded. `root` is the directory that holds
+    BENCHMARK.json and the benchmark's files."""
     import contextlib
 
     import torch
 
     from benchmark.harness import spec as S
-    from benchmark.harness.cells import KINDS, Context, sync
+    from benchmark.harness.cells import Context, sync
 
     spec = S.load_spec(os.path.join(root, "BENCHMARK.json"))
     cell = S.cell(spec, args.workload)
@@ -114,20 +121,31 @@ def run(args, dev, root: str = _REPO, log=_log):
     bench_dir = os.path.join(root, os.path.basename(_HERE))
     with open(S.traffic_file(cell["traffic"], bench_dir)) as f:
         traffic = json.load(f)
+    devs = [torch.device(d) for d in
+            (devs if isinstance(devs, (list, tuple)) else [devs])]
+    dev = devs[0]
     cuda = dev.type == "cuda"
     if cuda:
         from rambl_tpu_torch.device import card_line
 
-        log(f"{args.workload} seed {args.seed} on {card_line(dev)}")
+        for d in devs:
+            log(f"{args.workload} seed {args.seed} on {card_line(d)}")
     ctx = Context(cell=args.workload, config_name=cell["config"],
                   config=config, traffic=traffic, seed=args.seed, device=dev,
-                  log=log)
-    runner = KINDS[traffic["kind"]](ctx)
+                  log=log, devices=tuple(devs))
+    runner = S.runner(traffic["kind"], bench_dir)(ctx)
     runner.setup()
-    sync(dev)
-    setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    sync(ctx)
+
+    def peaks():
+        """Each card's peak allocation since its last reset."""
+        return [torch.cuda.max_memory_allocated(d) if cuda else 0
+                for d in devs]
+
+    setup_peaks = peaks()
     if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.time() - T_START
     log(f"set-up done in {setup_s:.1f} s; window of {args.seconds} s")
 
@@ -139,13 +157,15 @@ def run(args, dev, root: str = _REPO, log=_log):
         with K1Launches() as k1:
             work, trace = traced(lambda span: runner.window(args.seconds,
                                                             span),
-                                 deadline=T_START + TRACE_DEADLINE_S)
+                                 deadline=T_START + TRACE_DEADLINE_S,
+                                 devices=devs)
         window_s = trace.window_s
     else:
         t0 = time.perf_counter()
         work = runner.window(args.seconds, contextlib.nullcontext)
         window_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    window_peaks = peaks()
+    peak = max(window_peaks)
     log(f"window: {work} {traffic['unit']} in {window_s:.3f} s")
     bad = forbidden_modules()
     if bad:
@@ -175,7 +195,8 @@ def run(args, dev, root: str = _REPO, log=_log):
     device = {"platform": "gpu" if cuda else dev.type,
               "kind": torch.cuda.get_device_name(dev) if cuda else dev.type,
               "count": cell["chips"],
-              "memory_peak_bytes": int(max(peak, setup_peak))}
+              "memory_peak_bytes": int(max(map(max, setup_peaks,
+                                               window_peaks)))}
     line = {"correct": correct, "attempted": int(work), "failed": 0,
             "metrics": metrics, "device": device}
     if trace is not None:

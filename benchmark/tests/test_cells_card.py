@@ -11,7 +11,8 @@ import contextlib
 import pytest
 import torch
 
-from benchmark.harness.cells import KINDS, Context
+from benchmark.harness import spec as S
+from benchmark.harness.cells import Context
 
 pytestmark = pytest.mark.cuda
 
@@ -48,9 +49,9 @@ def card(tmp_path, monkeypatch):
 
 
 def _runner(kind, config, dev, seed):
-    d = KINDS[kind](Context(cell="card", config_name=f"card-{kind}",
-                            config=config, traffic=TRAFFIC[kind], seed=seed,
-                            device=dev, log=lambda m: None))
+    d = S.runner(kind)(Context(cell="card", config_name=f"card-{kind}",
+                               config=config, traffic=TRAFFIC[kind],
+                               seed=seed, device=dev, log=lambda m: None))
     d.setup()
     return d
 
@@ -75,7 +76,6 @@ def test_cells_card_cluster_and_control(card, seed):
 
 
 def test_cells_card_traced_window(card):
-    from benchmark.harness import spec as S
     from benchmark.harness.spans import K1Launches
     from benchmark.harness.trace import traced
 

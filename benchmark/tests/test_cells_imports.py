@@ -19,7 +19,8 @@ import contextlib, json, sys, tempfile
 import torch
 from benchmark import run
 from benchmark.harness import panel
-from benchmark.harness.cells import KINDS, Context
+from benchmark.harness import spec
+from benchmark.harness.cells import Context
 from benchmark.harness import spans, trace
 panel.CACHE_DIR = tempfile.mkdtemp()
 cfg = {"panel": {"n_species": 3, "refs_per_species": 2, "leaf_per_ref": False,
@@ -30,8 +31,8 @@ cfg = {"panel": {"n_species": 3, "refs_per_species": 2, "leaf_per_ref": False,
        "settings": {"batch_size": 256, "sw_rows": 104}}
 tr = {"kind": "stream", "rate_metric": "reads_per_s", "unit": "reads",
       "check_reads": 20}
-d = KINDS["stream"](Context("t", "t", cfg, tr, 1, torch.device("cpu"),
-                            log=lambda m: None))
+d = spec.runner("stream")(Context("t", "t", cfg, tr, 1, torch.device("cpu"),
+                                  log=lambda m: None))
 d.setup()
 d.window(0.0, contextlib.nullcontext)
 assert all(v == 0 for v, _ in d.check().values())

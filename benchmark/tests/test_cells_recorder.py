@@ -24,8 +24,8 @@ def entries():
 
 
 def _rec(dev_intervals):
-    ev = [(WINDOW_SPAN, False, T0, T0 + 100 * MS)]
-    ev += [("kernel", True, T0 + a * MS, T0 + b * MS)
+    ev = [(WINDOW_SPAN, False, T0, T0 + 100 * MS, None)]
+    ev += [("kernel", True, T0 + a * MS, T0 + b * MS, 0)
            for a, b in dev_intervals]
     tr = Trace(ev)
     return dict(trace=tr, work=1000, window_s=tr.window_s, busy_s=tr.busy_s,
@@ -54,6 +54,24 @@ def test_cells_recorder_stream_readers(entries):
     assert loop_idle == pytest.approx(56.0)
     idle = S.reader("stream.idle_share")(rec)
     assert idle == pytest.approx(66.0)
+    assert loop_idle <= idle
+
+
+def test_cells_recorder_loop_idle_cards(entries):
+    """On two cards the loop's idle share is the mean of the cards' own,
+    as the window's idle share is the mean of theirs."""
+    ev = [(WINDOW_SPAN, False, T0, T0 + 100 * MS, None),
+          ("kernel", True, T0 + 10 * MS, T0 + 30 * MS, 0),
+          ("kernel", True, T0 + 50 * MS, T0 + 90 * MS, 1)]
+    tr = Trace(ev, cards=(0, 1))
+    rec = dict(trace=tr, work=1000, window_s=tr.window_s, busy_s=tr.busy_s,
+               k1_launches=[])
+    _span(entries, "stream.loop", 0, 80, "stream")
+    loop_idle = S.reader("stream.loop_idle_share")(rec)
+    # card 0 idles 60 ms of the loop's 80, card 1 50 ms: a mean of 55
+    assert loop_idle == pytest.approx(55.0)
+    idle = S.reader("stream.idle_share")(rec)
+    assert idle == pytest.approx(70.0)           # busy 20 and 40 ms
     assert loop_idle <= idle
 
 

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness.cells import KINDS, Context
+from benchmark.harness import spec as S
+from benchmark.harness.cells import Context
 
 SAMPLE = {"n_reads": 600, "abundance_sigma": 1.0, "read_len": 100,
           "read_len_max": 128, "sub_error": 0.004, "indel_error": 0.0005}
@@ -44,7 +45,7 @@ def drive(kind, config, seed=2 ** 31 + 11):
     ctx = Context(cell="tiny", config_name=f"tiny-{kind}", config=config,
                   traffic=TRAFFIC[kind], seed=seed, device=torch.device("cpu"),
                   log=lambda m: None)
-    d = KINDS[kind](ctx)
+    d = S.runner(kind)(ctx)
     d.setup()
     for _ in range(len(getattr(d, "blocks", [None]))):
         d.window(0.0, contextlib.nullcontext)

@@ -1,6 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, and the files each of
-its names resolves to; a cell and a metric added as files in another
-directory load and run with no edit."""
+its names resolves to; a cell, a traffic kind and a metric added as files
+in another directory load and run with no edit, on one device or two."""
 
 import json
 import os
@@ -13,7 +13,6 @@ import torch
 
 from benchmark import run as brun
 from benchmark.harness import spec as S
-from benchmark.harness.cells import KINDS
 
 SPEC = S.load_spec()
 TEXT = re.compile(r"^[^\t\n]{1,200}$")
@@ -90,7 +89,7 @@ def test_cells_resolve_to_their_files():
         S.config_entry(SPEC, w["config"])
         with open(S.traffic_file(w["traffic"])) as f:
             traffic = json.load(f)
-        assert traffic["kind"] in KINDS
+        assert callable(S.runner(traffic["kind"]))
         e2e = {m["name"] for m in S.metrics_of(SPEC, w["name"])}
         assert "setup_s" in e2e and traffic["rate_metric"] in e2e
         assert len(e2e) >= 2
@@ -119,15 +118,16 @@ TINY = {
 
 
 def test_cells_extra_cell_and_metric_from_files(tmp_path, db_cache):
-    """A cell, its configuration, its traffic and a per-layer metric that
-    exist only as files and entries in another directory run with no edit
-    to the benchmark's code."""
+    """A cell, its configuration, its traffic, its traffic kind and a
+    per-layer metric that exist only as files and entries in another
+    directory run with no edit to the benchmark's code."""
     root = tmp_path / "root"
     bench = root / "benchmark"
-    for sub in ("configs", "workloads", "metrics"):
+    for sub in ("configs", "workloads", "kinds", "metrics"):
         (bench / sub).mkdir(parents=True)
     (bench / "configs" / "tiny.json").write_text(json.dumps(TINY))
     shutil.copy(S.traffic_file("stream"), bench / "workloads" / "again.json")
+    shutil.copy(S.kind_file("stream"), bench / "kinds" / "stream.py")
     (bench / "metrics" / "extra.reads_per_busy_s.py").write_text(
         "def read(rec):\n"
         "    return rec['work'] / rec['busy_s'] if rec['busy_s'] else None\n")
@@ -162,3 +162,79 @@ def test_cells_extra_cell_and_metric_from_files(tmp_path, db_cache):
     assert list(line)[-1] == "compared"
     assert all(v["value"] == 0 for v in line["compared"].values())
     assert np.isfinite(line["metrics"]["reads_per_s"]["value"])
+
+
+KIND_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kinds",
+                         "cards.py")
+
+
+def cards_root(tmp_path, chips: int, config: dict) -> str:
+    """A directory holding BENCHMARK.json with a cell `cards.load` of
+    `chips` cards, and its configuration, traffic, traffic kind (the test
+    kind `kinds/cards.py`) and a per-layer metric as files of its own."""
+    root = tmp_path / "root"
+    bench = root / "benchmark"
+    for sub in ("configs", "workloads", "kinds", "metrics"):
+        (bench / sub).mkdir(parents=True)
+    (bench / "configs" / "cards.json").write_text(json.dumps(config))
+    (bench / "workloads" / "load.json").write_text(json.dumps(
+        {"kind": "cards", "rate_metric": "steps_per_s", "unit": "steps"}))
+    shutil.copy(KIND_FILE, bench / "kinds" / "cards.py")
+    (bench / "metrics" / "cards.idle_share.py").write_text(
+        "def read(rec):\n"
+        "    return 100.0 * (1.0 - rec['busy_s'] / rec['window_s'])\n")
+    spec = dict(SPEC)
+    spec["configs"] = [dict(name="cards", source="tests",
+                            file="benchmark/configs/cards.json", reduced=[],
+                            why="tests")]
+    spec["workloads"] = [dict(name="cards.load", config="cards",
+                              traffic="load", chips=chips, why="tests")]
+    spec["end_to_end"] = [
+        dict(name="steps_per_s", unit="steps/s", better="higher", bound=0.25,
+             source="host_clock"),
+        dict(name="peak_gb", unit="GB", better="lower", bound=0.01,
+             source="host_clock"),
+        dict(name="setup_s", unit="s", better="lower", bound=0.25,
+             source="host_clock")]
+    spec["per_layer"] = [dict(name="cards.idle_share", unit="%",
+                              better="lower", source="device_trace",
+                              layer="tests", moves="steps_per_s")]
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return str(root)
+
+
+def test_cells_extra_kind_on_two_devices_from_files(tmp_path, monkeypatch):
+    """A cell of two devices whose traffic kind, configuration and traffic
+    exist only as files under another root runs through `run.run` on two
+    devices, and its runner's `Context` holds both."""
+    root = cards_root(tmp_path, 2, {"alloc_bytes": 1000, "adds": 3})
+    seen = []
+    real = S.runner
+
+    def runner(kind, bench_dir=S.BENCH_DIR):
+        assert bench_dir == os.path.join(root, "benchmark")
+        cls = real(kind, bench_dir)
+        return lambda ctx: seen.append(ctx) or cls(ctx)
+
+    monkeypatch.setattr(S, "runner", runner)
+    args = types.SimpleNamespace(workload="cards.load", seed=2 ** 31 + 6,
+                                 seconds=0.0, trace=0, control=0)
+    line = brun.run(args, ["cpu"] * 2, root=root, log=lambda m: None)
+    assert [c.devices for c in seen] == [(torch.device("cpu"),) * 2]
+    assert seen[0].device == torch.device("cpu")
+    assert line["correct"] is True
+    assert line["compared"] == {"cards_differing": {"value": 0, "limit": 0}}
+    assert line["attempted"] == 1
+    assert line["device"]["count"] == 2
+    assert set(line["metrics"]) == {"steps_per_s", "peak_gb", "setup_s"}
+    # a runner that leaves a card out reads not correct
+    bad = tmp_path / "bad"
+    shutil.copytree(root, bad)
+    kind = bad / "benchmark" / "kinds" / "cards.py"
+    kind.write_text(kind.read_text().replace("for b in self.held:",
+                                             "for b in self.held[:1]:"))
+    seen.clear()
+    monkeypatch.setattr(S, "runner", real)
+    line = brun.run(args, ["cpu"] * 2, root=str(bad), log=lambda m: None)
+    assert line["correct"] is False
+    assert line["compared"]["cards_differing"]["value"] == 1
