@@ -4,9 +4,10 @@ Every knob that affects output bits lives in one frozen dataclass, so that the
 NumPy oracle, the JAX package and this port consume identical parameters. The
 fields, defaults and PRESETS are the reference's, unchanged
 (`dataclasses.asdict` of every preset is held equal in
-tests/test_torch_host_layers.py); some fields (`sw_impl`, `ring_impl`,
+tests/test_torch_host_layers.py); some fields (`sw_impl`,
 `mesh_data_axis`) only steer the JAX package and are kept so that a config
-means the same thing in both packages.
+means the same thing in both packages. `ring_impl` steers both: the port's
+`parallel.ring_dma.ring_rotate` takes it.
 
 The five BASELINE configs (BASELINE.json:6-12) are exposed as named PRESETS.
 """
@@ -212,10 +213,12 @@ class PipelineConfig:
     mesh_data_axis: str = "data"
     shard_index: bool = False        # False: replicate index; True: ring-sharded
     # transport for the ring-sharded index rotation: "ppermute" = XLA
-    # collective; "dma" = raw Pallas make_async_remote_copy + DMA semaphores;
+    # collective (the port: one copy_ a rank and array); "dma" = raw Pallas
+    # make_async_remote_copy + DMA semaphores (the port: K4, csrc/ring.cu,
+    # one launch a rank into the next rank's buffer, across cards too);
     # "dma_barrier" = dma plus a neighbor entry barrier + collective_id
-    # (parallel/ring_dma.py ordering invariant; TPU meshes only - all
-    # bitwise identical)
+    # (parallel/ring_dma.py ordering invariant; "dma" and "dma_barrier" run
+    # on TPU meshes and CUDA ranks only - all bitwise identical)
     ring_impl: str = "ppermute"
     # merge the streamed pileup accumulators with psum_scatter over the
     # COLUMN axis instead of a full psum (mesh mode only): the collective

@@ -12,6 +12,11 @@ Layout: the port's, not the TPU's 128-lane chunk rows. A shard is its
 `bucket_start` slice (Pn + 1 absolute int32 offsets) and one (emax, 3) int32
 entry array (key, ref, pos per row; pad rows carry key -1). Both rotate as
 flat 32-bit words.
+
+Spans and counts (`utils.trace`): `align.seed` around the seeding of a
+batch, `ring.probe` around each strand's probe of every shard, and
+`ring.rotate` around each hop, which counts `ring.rotations` (1) and
+`ring.words` (the words the hop sends, summed over the ranks).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from rambl_tpu_torch.ops.seed import (
 from rambl_tpu_torch.parallel.mesh import DataMesh
 from rambl_tpu_torch.parallel.ring_dma import ring_rotate
 from rambl_tpu_torch.pipeline.align import align_from_candidates
+from rambl_tpu_torch.utils import trace
 
 
 def build_ring_shards(index, n_shards: int) -> dict:
@@ -86,13 +92,20 @@ class RingShards:
                        d, copy=True))
             self.state.append(own)
             self.spare.append(tuple(torch.empty_like(x) for x in own))
+        #: the 32-bit words one rotation sends, summed over the ranks
+        self.words = sum(x.numel() for arrays in self.state for x in arrays)
 
     @property
     def n_local(self) -> int:
         return self.state[0][0].shape[0] - 1
 
     def rotate(self, impl: str) -> None:
-        out = ring_rotate(self.state, self.mesh, impl, out=self.spare)
+        """One hop of every shard (r -> r + 1), a `ring.rotate` span that
+        counts `ring.rotations` and `ring.words`."""
+        with trace.span("ring.rotate"):
+            trace.count("ring.rotations", 1)
+            trace.count("ring.words", self.words)
+            out = ring_rotate(self.state, self.mesh, impl, out=self.spare)
         self.spare, self.state = self.state, out
 
 
@@ -132,20 +145,22 @@ def ring_align_batch(mesh: DataMesh, reads, read_lens, shards: RingShards,
     the reference's traced version leaves the check to it."""
     n = mesh.size
     rc_reads, cands = [], {}
-    for r in range(n):
-        with mesh.rank(r):
-            rc_reads.append(revcomp(reads[r], read_lens[r]))
-    for strand, qs in (("f", reads), ("r", rc_reads)):
-        keys, valid = [], []
+    with trace.span("align.seed"):
         for r in range(n):
             with mesh.rank(r):
-                k, v = query_kmers(qs[r], read_lens[r], cfg)
-                keys.append(k)
-                valid.append(v)
-        ckey = _ring_probe(mesh, keys, valid, shards, cfg, n_bits)
-        for r in range(n):
-            with mesh.rank(r):
-                cands[strand, r] = select_candidates(ckey[r], cfg)
+                rc_reads.append(revcomp(reads[r], read_lens[r]))
+        for strand, qs in (("f", reads), ("r", rc_reads)):
+            keys, valid = [], []
+            for r in range(n):
+                with mesh.rank(r):
+                    k, v = query_kmers(qs[r], read_lens[r], cfg)
+                    keys.append(k)
+                    valid.append(v)
+            with trace.span("ring.probe"):
+                ckey = _ring_probe(mesh, keys, valid, shards, cfg, n_bits)
+            for r in range(n):
+                with mesh.rank(r):
+                    cands[strand, r] = select_candidates(ckey[r], cfg)
     out = []
     for r in range(n):
         with mesh.rank(r):

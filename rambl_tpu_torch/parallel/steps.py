@@ -37,6 +37,7 @@ from rambl_tpu_torch.pipeline.assemble import (
 )
 from rambl_tpu_torch.pipeline.cluster import bin_sort, member_table_ranges
 from rambl_tpu_torch.pipeline.pileup import node_pileup, node_slot_pileup
+from rambl_tpu_torch.utils import trace
 
 
 def make_align_bin_step(mesh: DataMesh, cfg: PipelineConfig, n_bits: int,
@@ -57,9 +58,10 @@ def make_align_bin_step(mesh: DataMesh, cfg: PipelineConfig, n_bits: int,
             res = ring_align_batch(mesh, reads, lens, table,
                                    [s.ref_seqs for s in st], cfg, n_bits)
             out = []
-            for r in range(mesh.size):
-                with mesh.rank(r):
-                    out.append(_bin_project(res[r], st[r], cfg))
+            with trace.span("align.bin"):
+                for r in range(mesh.size):
+                    with mesh.rank(r):
+                        out.append(_bin_project(res[r], st[r], cfg))
         else:
             out = []
             for r in range(mesh.size):

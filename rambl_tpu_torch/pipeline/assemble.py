@@ -185,16 +185,16 @@ def stream_align(reads, lens, index, ref_seqs, ref_lens, tables,
         raise UserError(
             f"cfg.sw_rows={cfg.sw_rows} < longest read {int(np.max(lens))}: "
             "the truncated SW sweep is only exact when every real read fits")
-    if mesh is not None:
-        return _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens,
-                                  tables, cfg, mesh, col_maps, ring_shards,
-                                  stream_tables)
-    if ring_shards is not None or stream_tables is not None:
+    if mesh is None and (ring_shards is not None
+                         or stream_tables is not None):
         raise ValueError("ring_shards and stream_tables need a mesh")
-    device = resolve(device)
     with trace.span("stream"):
+        if mesh is not None:
+            return _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens,
+                                      tables, cfg, mesh, col_maps,
+                                      ring_shards, stream_tables)
         return _stream_align_one(reads, lens, index, ref_seqs, ref_lens,
-                                 tables, cfg, col_maps, device)
+                                 tables, cfg, col_maps, resolve(device))
 
 
 def _stream_align_one(reads, lens, index, ref_seqs, ref_lens, tables,
@@ -323,6 +323,14 @@ def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
     with shard_positions counts as each rank's column slice and span_diff
     replicated and trimmed to ref_len + 1; both None in slot mode
     (n_nodes > cfg.pileup_slot_nodes), where only read_count is merged.
+
+    Its spans (`utils.trace`), inside `stream_align`'s `stream`:
+    `stream.prepare` (`stream.ring_shards` or `stream.index_upload` and
+    `stream.tables_upload` (`stream.col_maps`) where the call builds them,
+    `stream.pad`, `stream.pin`, `stream.buffers`), `stream.loop` ->
+    `stream.batch` (the step's `align.*` and `ring.*`, `stream.retain`),
+    then `stream.merge` (the accumulators' psum) and `stream.replicate`
+    (the per-read outputs gathered to rank 0 and replicated).
     """
     from rambl_tpu_torch.parallel.mesh import put_replicated, put_sharded
     from rambl_tpu_torch.parallel.ring import RingShards, build_ring_shards
@@ -345,87 +353,106 @@ def _stream_align_mesh(reads, lens, index, ref_seqs, ref_lens, tables,
                 or ring_shards.n_local != -(-index.n_buckets // n)):
             raise ValueError("ring_shards are not this index's shards on "
                              "this mesh")
-        table = ring_shards
-    elif cfg.shard_index:
-        table = RingShards(build_ring_shards(index, n), mesh)
-    else:
-        # one upload a card: virtual ranks of a card share its copy
-        per_dev = {d: SeedTable.from_index(index, d)
-                   for d in dict.fromkeys(mesh.devices)}
-        table = [per_dev[d] for d in mesh.devices]
-    if col_maps is None:
-        with trace.span("stream.col_maps"):
-            col_maps = build_col_maps(np.asarray(ref_seqs),
-                                      np.asarray(ref_lens),
-                                      np.asarray(tables.ref_taxon))
-    if stream_tables is not None:
-        st = list(stream_tables)
-        if len(st) != n or any(
-                s.ref_seqs.device != d or tuple(s.ref_seqs.shape)
-                != tuple(np.shape(ref_seqs))
-                or s.anc_path.shape[0] != tables.n_nodes
-                for s, d in zip(st, mesh.devices)):
-            raise ValueError("stream_tables are not this panel's tables on "
-                             "this mesh's cards, one a rank")
-    else:
-        per_dev = {d: StreamTables.from_host(ref_seqs, tables, col_maps, d)
-                   for d in dict.fromkeys(mesh.devices)}
-        st = [per_dev[d] for d in mesh.devices]
+    if stream_tables is not None and (len(stream_tables) != n or any(
+            s.ref_seqs.device != d or tuple(s.ref_seqs.shape)
+            != tuple(np.shape(ref_seqs))
+            or s.anc_path.shape[0] != tables.n_nodes
+            for s, d in zip(stream_tables, mesh.devices))):
+        raise ValueError("stream_tables are not this panel's tables on "
+                         "this mesh's cards, one a rank")
     n_nodes = tables.n_nodes
     ref_len = ref_seqs.shape[1]
+    with trace.span("stream.prepare"):
+        if ring_shards is not None:
+            table = ring_shards
+        elif cfg.shard_index:
+            with trace.span("stream.ring_shards"):
+                table = RingShards(build_ring_shards(index, n), mesh)
+        else:
+            with trace.span("stream.index_upload"):
+                # one upload a card: virtual ranks of a card share its copy
+                per_dev = {d: SeedTable.from_index(index, d)
+                           for d in dict.fromkeys(mesh.devices)}
+                table = [per_dev[d] for d in mesh.devices]
+        if stream_tables is not None:
+            st = list(stream_tables)
+        else:
+            with trace.span("stream.tables_upload"):
+                if col_maps is None:
+                    with trace.span("stream.col_maps"):
+                        col_maps = build_col_maps(
+                            np.asarray(ref_seqs), np.asarray(ref_lens),
+                            np.asarray(tables.ref_taxon))
+                per_dev = {d: StreamTables.from_host(ref_seqs, tables,
+                                                     col_maps, d)
+                           for d in dict.fromkeys(mesh.devices)}
+                st = [per_dev[d] for d in mesh.devices]
 
-    padded, plens, nb, B = _pad_batches(np.asarray(reads, np.int8),
-                                        np.asarray(lens, np.int32), bs)
-    L = padded.shape[1]
-    host_reads = torch.from_numpy(padded)
-    host_lens = torch.from_numpy(plens)
-    if mesh.on_card:
-        host_reads = host_reads.pin_memory()
-        host_lens = host_lens.pin_memory()
+        with trace.span("stream.pad"):
+            padded, plens, nb, B = _pad_batches(np.asarray(reads, np.int8),
+                                                np.asarray(lens, np.int32),
+                                                bs)
+        L = padded.shape[1]
+        with trace.span("stream.pin"):
+            host_reads = torch.from_numpy(padded)
+            host_lens = torch.from_numpy(plens)
+            if mesh.on_card:
+                host_reads = host_reads.pin_memory()
+                host_lens = host_lens.pin_memory()
+        with trace.span("stream.buffers"):
+            compact = ref_len <= 32767
+            bl = bs // n
+            qbuf = [torch.zeros((nb, bl, L), dtype=torch.int8, device=d)
+                    for d in mesh.devices]
+            rbuf = [torch.zeros((nb, bl, L),
+                                dtype=torch.int16 if compact else torch.int32,
+                                device=d) for d in mesh.devices]
+            bbuf = [torch.zeros((nb, bl), dtype=torch.int32, device=d)
+                    for d in mesh.devices]
 
     def _put(i):
         sl = slice(i * bs, (i + 1) * bs)
         return put_sharded(host_reads[sl], mesh), put_sharded(host_lens[sl],
                                                               mesh)
 
-    compact = ref_len <= 32767
-    bl = bs // n
-    qbuf = [torch.zeros((nb, bl, L), dtype=torch.int8, device=d)
-            for d in mesh.devices]
-    rbuf = [torch.zeros((nb, bl, L),
-                        dtype=torch.int16 if compact else torch.int32,
-                        device=d) for d in mesh.devices]
-    bbuf = [torch.zeros((nb, bl), dtype=torch.int32, device=d)
-            for d in mesh.devices]
     step = make_align_bin_step(mesh, cfg, index.n_bits, ring=cfg.shard_index)
     fill = make_retain_step(mesh)
     small = {k: [] for k in RETAINED[2:]}       # bins, score, ref, strand
-    nxt = _put(0) if nb else None
-    for i in range(nb):
-        cur, nxt = nxt, (_put(i + 1) if i + 1 < nb else None)
-        outs = step(cur[0], cur[1], table, st)
-        fill(qbuf, rbuf, bbuf, *([o[j] for o in outs] for j in range(3)), i)
-        for j, k in enumerate(RETAINED[2:], start=2):
-            small[k] += [o[j] for o in outs]
+    with trace.span("stream.loop"):
+        nxt = _put(0) if nb else None
+        for i in range(nb):
+            with trace.span("stream.batch"):
+                cur, nxt = nxt, (_put(i + 1) if i + 1 < nb else None)
+                outs = step(cur[0], cur[1], table, st)
+                with trace.span("stream.retain"):
+                    fill(qbuf, rbuf, bbuf,
+                         *([o[j] for o in outs] for j in range(3)), i)
+                    for j, k in enumerate(RETAINED[2:], start=2):
+                        small[k] += [o[j] for o in outs]
 
-    if n_nodes <= cfg.pileup_slot_nodes:
-        pstep = make_pileup_merge_step(mesh, n_nodes, ref_len,
-                                       shard_positions=cfg.shard_positions)
-        counts, span_diff, read_count = pstep(qbuf, rbuf, bbuf)
-        if cfg.shard_positions:
-            # width contract: replicate the padded span rows, keep ref_len+1
-            full = torch.cat([s.to(mesh.devices[0]) for s in span_diff], 1)
-            span_diff = put_replicated(full[:, :ref_len + 1].contiguous(),
-                                       mesh)
-    else:
-        counts = span_diff = None
-        read_count = make_read_count_step(mesh, n_nodes)(bbuf)
+    with trace.span("stream.merge"):
+        if n_nodes <= cfg.pileup_slot_nodes:
+            pstep = make_pileup_merge_step(
+                mesh, n_nodes, ref_len, shard_positions=cfg.shard_positions)
+            counts, span_diff, read_count = pstep(qbuf, rbuf, bbuf)
+            if cfg.shard_positions:
+                # width contract: replicate the padded span rows, keep
+                # ref_len + 1
+                full = torch.cat([s.to(mesh.devices[0]) for s in span_diff],
+                                 1)
+                span_diff = put_replicated(
+                    full[:, :ref_len + 1].contiguous(), mesh)
+        else:
+            counts = span_diff = None
+            read_count = make_read_count_step(mesh, n_nodes)(bbuf)
     if cfg.shard_index and cfg.ring_impl == "dma_barrier":
         check_ring(mesh)
 
-    dev0 = mesh.devices[0]
-    merged = {k: put_replicated(torch.cat([t.to(dev0) for t in v])[:B], mesh)
-              for k, v in small.items()}
+    with trace.span("stream.replicate"):
+        dev0 = mesh.devices[0]
+        merged = {k: put_replicated(torch.cat([t.to(dev0) for t in v])[:B],
+                                    mesh)
+                  for k, v in small.items()}
     merged["query"] = qbuf
     merged["ref_col"] = rbuf
     merged["bins_sh"] = bbuf
